@@ -5,7 +5,9 @@ Drives the port's main path -- a cold BVGraph decode planned from the
 stream and its offsets alone, into a device-resident CSR, then one
 HyperBall round over it -- at uk-2002 scale (18.5M nodes, ~355M arcs of a
 synthetic web graph), after holding both hand-written CUDA kernels against
-their plain PyTorch versions on the card.
+their plain PyTorch versions on the card; and the probe path -- every probe
+of the JAX package's ``experiments/`` ported to a CUDA kernel in
+``webgraph_tpu_torch/experiments/`` -- at the probes' own shapes.
 
 Phases, each printing one line:
 
@@ -14,14 +16,21 @@ Phases, each printing one line:
 3. kernels: the decode kernel (B1) against ``decode_lanes_plain`` under
    four stream formats and one garbled stream, the compaction kernel (B2)
    against ``compact_plain`` on random run tables with invalid runs;
-4. slice: the synthetic graph is generated and encoded (cached in
+4. probes: with launch counts reset just before and read just after,
+   every case of every probe module (``cases`` of ``probe``, ``probe2``
+   ... ``probe17``: 23 probe sites, every variant) launches its kernel at
+   the probe's step count, times it with CUDA events, and holds it equal
+   to its plain version (at a smaller step count where the plain version
+   at the full count would take too long; the line says which);
+5. slice: the synthetic graph is generated and encoded (cached in
    ``.bench_synth_<N>.npz``), then plan -> resolve_halos -> decode_to_csr
    -> device_round with launch counts reset just before and read just
    after; then timings, both kernels against their plain versions at the
    shapes the slice gave them, and the CSR bit-exact against the native
    sequential decoder.
 
-Then one JSON line of the kernels, one of the slice's numbers, and last
+Then one JSON line of the kernels (both main-path kernels and the 23 probe
+sites), one of the slice's numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without a CUDA device it fails before doing anything.
 
@@ -30,6 +39,7 @@ Usage: ``python3 chip_smoke.py``; it needs one CUDA device.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -48,6 +58,7 @@ from webgraph_tpu.codecs.bvgraph import CompressionFlags as C  # noqa: E402
 from webgraph_tpu.utils.synth import synthesize_webgraph  # noqa: E402
 from webgraph_tpu_torch import require_cuda  # noqa: E402
 from webgraph_tpu_torch.algo import hyperball as HB  # noqa: E402
+from webgraph_tpu_torch.experiments import common as PC  # noqa: E402
 from webgraph_tpu_torch.ops import _build, kcompact, kdecode, kplan  # noqa
 from webgraph_tpu_torch.ops.csr import decode_to_csr  # noqa: E402
 from webgraph_tpu_torch.ops.resolve import resolve_halos  # noqa: E402
@@ -58,6 +69,12 @@ KERNELS = {
     "compact_runs": dict(source="webgraph_tpu_torch/csrc/compact.cu",
                          replaces="webgraph_tpu/ops/kcompact.py:115"),
 }
+# the probe modules, in the order the probes phase runs them
+PROBE_MODULES = ("probe", "probe2", "probe3", "probe4", "probe16", "probe5",
+                 "probe6", "probe7", "probe8", "probe9", "probe10", "probe11",
+                 "probe12", "probe13", "probe14", "probe15", "probe17")
+_CS = "webgraph_tpu_torch/csrc/"
+PROBE_SITES = _build.PROBE_SITES   # site: (kernel source, replaced site)
 SLICE_NODES = 18_500_000   # uk-2002: 18.52M nodes (BASELINE.md)
 CHECK_NODES = 20_000
 CHECK_SETTINGS = {
@@ -103,7 +120,7 @@ class Errors:
     every value is an integer, so the tolerance is exact equality)."""
 
     def __init__(self):
-        self.err = {k: 0 for k in KERNELS}
+        self.err = {k: 0 for k in (*KERNELS, *PROBE_SITES)}
 
     def check(self, name: str, what: str, a, b) -> None:
         e = max_abs_diff(a, b)
@@ -214,6 +231,45 @@ def phase_kernels(dev, errors: Errors) -> None:
     emit("kernels", rows)
 
 
+def phase_probes(dev, errors: Errors) -> dict:
+    """The probe path: every case of every probe module, launch counts
+    reset just before and read just after.  Returns per site its launches,
+    summed kernel and plain ms and the number of cases."""
+    mods = [importlib.import_module(f"webgraph_tpu_torch.experiments.{m}")
+            for m in PROBE_MODULES]
+    rng = np.random.default_rng(0)
+    cases = [c for m in mods for c in m.cases(dev, rng)]
+    _build.reset_launches()
+    rows = PC.run_cases(cases)
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] for k in PROBE_SITES}
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"the probe path never launched {k}")
+    lines = []
+    for r in rows:
+        lines.append(dict(site=r.site, name=r.name.strip(), ms=r.ms,
+                          floor_ms=r.floor_ms, plain_ms=r.plain_ms,
+                          steps=r.steps,
+                          checked_steps=r.checked_steps,
+                          ns_per_step=r.ns_per_step, lanes=r.lanes,
+                          tiles=r.tiles, max_abs_err=r.max_abs_err))
+        errors.err[r.site] = max(errors.err[r.site], r.max_abs_err)
+    emit("probes", lines)
+    bad = [r.name for r in rows if not r.ok]
+    if bad:
+        raise AssertionError(f"probe kernels differ from their plain "
+                             f"versions: {bad}")
+    per_site = {k: dict(launches=v, ms=0.0, plain_ms=0.0, cases=0)
+                for k, v in launches.items()}
+    for r in rows:
+        d = per_site[r.site]
+        d["ms"] += r.ms
+        d["plain_ms"] += r.plain_ms
+        d["cases"] += 1
+    return per_site
+
+
 def synth_input(n_nodes: int):
     """The encoded synthetic graph, cached in .bench_synth_<N>.npz (the
     format bench_synth.py writes)."""
@@ -264,7 +320,7 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
     regs0 = torch.from_numpy(HB.hyperloglog_init(n, LOG2M, seed=1)).to(dev)
     regs1 = HB.device_round(co, succ, regs0)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = {k: _build.LAUNCHES[k] for k in KERNELS}
     peak_main = torch.cuda.max_memory_allocated()
     for k, v in launches.items():
         if v <= 0:
@@ -358,6 +414,9 @@ def main() -> int:
     phase_build()
     errors = Errors()
     phase_kernels(dev, errors)
+    t0 = time.perf_counter()
+    probes = phase_probes(dev, errors)
+    probes_s = time.perf_counter() - t0
     res = phase_slice(dev, errors, SLICE_NODES)
     emit("slice", res)
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),
@@ -367,8 +426,15 @@ def main() -> int:
                     max_abs_err=errors.err[k], ms=times[k][0],
                     plain_ms=times[k][1])
                for k, v in KERNELS.items()]
+    # a probe site's ms and plain_ms: the sums over its cases
+    kernels += [dict(name=k, route="cuda", source=_CS + src, replaces=rep,
+                     launches=probes[k]["launches"],
+                     max_abs_err=errors.err[k], ms=probes[k]["ms"],
+                     plain_ms=probes[k]["plain_ms"])
+                for k, (src, rep) in PROBE_SITES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
-    emit("total", dict(seconds=time.perf_counter() - t_start))
+    emit("total", dict(seconds=time.perf_counter() - t_start,
+                       probes_s=probes_s))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -44,6 +44,11 @@ def test_importing_the_port_loads_no_jax():
         "from webgraph_tpu_torch.ops import (_build, bitstream, csr, "
         "kcompact, kdecode, kplan, resolve)\n"
         "from webgraph_tpu_torch.algo import hyperball\n"
+        "import importlib, pkgutil, webgraph_tpu_torch.experiments as ex\n"
+        "mods = [m.name for m in pkgutil.iter_modules(ex.__path__)]\n"
+        "assert sum(m.startswith('probe') for m in mods) == 17, mods\n"
+        "for m in mods:\n"
+        "    importlib.import_module('webgraph_tpu_torch.experiments.' + m)\n"
         "print('PRE' if pre else ('JAX' if 'jax' in sys.modules else 'OK'))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
