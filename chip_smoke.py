@@ -12,7 +12,8 @@ of the JAX package's ``experiments/`` ported to a CUDA kernel in
 Phases, each printing one line:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: nvcc builds the kernels, g++ the shared host library;
+2. build: nvcc builds the kernels (with ptxas's registers, stack and
+   spills of the two main-path kernels), g++ the port's host library;
 3. kernels: the decode kernel (B1) against ``decode_lanes_plain`` under
    four stream formats and one garbled stream, the compaction kernel (B2)
    against ``compact_plain`` on random run tables with invalid runs;
@@ -25,13 +26,15 @@ Phases, each printing one line:
 5. slice: the synthetic graph is generated and encoded (cached in
    ``.bench_synth_<N>.npz``), then plan -> resolve_halos -> decode_to_csr
    -> device_round with launch counts reset just before and read just
-   after; then timings, both kernels against their plain versions at the
-   shapes the slice gave them, and the CSR bit-exact against the native
-   sequential decoder.
+   after; then timings; B1's steps per arc and its slowest lane launched
+   alone; a ``torch.profiler`` window over one ``decode_to_csr``; B2's
+   library yardstick (``torch.index_select`` over a prebuilt index); both
+   kernels against their plain versions at the shapes the slice gave them;
+   and the CSR bit-exact against the native sequential decoder.
 
 Then one JSON line of the kernels (both main-path kernels and the 23 probe
-sites), one of the slice's numbers, and last
-``{"ok": true, "device": {...}}``.  Any failed check raises and the script
+sites, each with its launches, times, bound and library time), one of the
+slice's numbers, and last ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without a CUDA device it fails before doing anything.
 
 Usage: ``python3 chip_smoke.py``; it needs one CUDA device.
@@ -52,23 +55,27 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from webgraph_tpu import native  # noqa: E402
-from webgraph_tpu.codecs.bvgraph import BVGraphSettings  # noqa: E402
-from webgraph_tpu.codecs.bvgraph import CompressionFlags as C  # noqa: E402
-from webgraph_tpu.utils.synth import synthesize_webgraph  # noqa: E402
-from webgraph_tpu_torch import require_cuda  # noqa: E402
+from webgraph_tpu_torch import native, require_cuda  # noqa: E402
+from webgraph_tpu_torch.settings import BVGraphSettings  # noqa: E402
+from webgraph_tpu_torch.settings import CompressionFlags as C  # noqa: E402
+from webgraph_tpu_torch.utils.synth import synthesize_webgraph  # noqa: E402
 from webgraph_tpu_torch.algo import hyperball as HB  # noqa: E402
 from webgraph_tpu_torch.experiments import common as PC  # noqa: E402
 from webgraph_tpu_torch.ops import _build, kcompact, kdecode, kplan  # noqa
 from webgraph_tpu_torch.ops.csr import decode_to_csr  # noqa: E402
-from webgraph_tpu_torch.ops.resolve import resolve_halos  # noqa: E402
+from webgraph_tpu_torch.ops.resolve import _expand, resolve_halos  # noqa
 
 KERNELS = {
     "bv_decode_lanes": dict(source="webgraph_tpu_torch/csrc/bv_decode.cu",
-                            replaces="webgraph_tpu/ops/kdecode.py:1105"),
+                            replaces="webgraph_tpu/ops/kdecode.py:1114"),
     "compact_runs": dict(source="webgraph_tpu_torch/csrc/compact.cu",
-                         replaces="webgraph_tpu/ops/kcompact.py:115"),
+                         replaces="webgraph_tpu/ops/kcompact.py:125"),
 }
+# the H100 SXM's published peaks (NVIDIA H100 datasheet): device memory
+# rate, and float32 outside the tensor cores, the rate at which the probes'
+# integer steps are counted
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 # the probe modules, in the order the probes phase runs them
 PROBE_MODULES = ("probe", "probe2", "probe3", "probe4", "probe16", "probe5",
                  "probe6", "probe7", "probe8", "probe9", "probe10", "probe11",
@@ -107,6 +114,14 @@ def cuda_ms(fn, reps: int = 1, warmup: int = 0) -> float:
     return a.elapsed_time(b) / reps
 
 
+def bound(nbytes: float, ops: float = 0.0) -> tuple:
+    """(least ms the card could take, what sets it): bytes over the memory
+    rate against operations over the peak rate, the larger."""
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    o_ms = ops / PEAK_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
@@ -141,14 +156,20 @@ def phase_device() -> torch.device:
     return dev
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build both libraries; returns ptxas's report of the two main-path
+    kernels (registers, stack frame, spills)."""
     t0 = time.perf_counter()
     _build.lib()
     nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _build.use_built_native()
+    native.lib_path()
     gxx_s = time.perf_counter() - t0
-    emit("build", dict(nvcc_s=nvcc_s, gxx_s=gxx_s, dir=_build.BUILD_DIR))
+    ptxas = {k: v for k, v in _build.PTXAS.items()
+             if any(name in k for name in KERNELS)}
+    emit("build", dict(nvcc_s=nvcc_s, gxx_s=gxx_s, dir=_build.BUILD_DIR,
+                       ptxas=ptxas))
+    return ptxas
 
 
 def _decode_vs_plain(plan, errors: Errors, what: str):
@@ -260,13 +281,24 @@ def phase_probes(dev, errors: Errors) -> dict:
     if bad:
         raise AssertionError(f"probe kernels differ from their plain "
                              f"versions: {bad}")
-    per_site = {k: dict(launches=v, ms=0.0, plain_ms=0.0, cases=0)
+    per_site = {k: dict(launches=v, ms=0.0, plain_ms=0.0, cases=0,
+                        bound_ms=0.0, bytes=0, ops=0)
                 for k, v in launches.items()}
-    for r in rows:
+    for c, r in zip(cases, rows):
         d = per_site[r.site]
         d["ms"] += r.ms
         d["plain_ms"] += r.plain_ms
         d["cases"] += 1
+        # inputs read once, an output of the same size written once; at
+        # least one operation a lane a step
+        nb = 2 * sum(a.numel() * a.element_size() for a in c.args
+                     if isinstance(a, torch.Tensor))
+        ops = max(c.steps or 1, 1) * c.lanes
+        d["bytes"] += nb
+        d["ops"] += ops
+        d["bound_ms"] += bound(nb, ops)[0]
+    for d in per_site.values():
+        d["bound_by"] = bound(d["bytes"], d["ops"])[1]
     return per_site
 
 
@@ -350,6 +382,35 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
                      for _ in range(3))
     lane_arcs = plan.store_off[1:] - plan.store_off[:-1] - plan.halo_arcs
 
+    # ---- B1 on this slice: steps per arc, the slowest lane alone ----
+    diag0 = kdecode.decode_chunked(plan)
+    lane_steps = diag0[:, kdecode.DIAG_STEPS].to(torch.int64)
+    slow = int(torch.argmax(lane_steps))
+    one = plan.meta[slow:slow + 1]
+    alone_ms = min(cuda_ms(lambda: kdecode.decode_lanes(
+        plan.words, one, plan.store, plan.spec)) for _ in range(3))
+    b1 = dict(steps_per_arc=int(lane_steps.sum()) / m,
+              slowest_lane=slow, slowest_lane_steps=int(lane_steps[slow]),
+              slowest_lane_arcs=int(lane_arcs[slow]),
+              slowest_lane_alone_ms=alone_ms)
+    profile = profile_decode_to_csr(plan)
+    b1_bytes = (plan.words.numel() * 4 + plan.meta.numel() * 8
+                + 4 * (int(plan.halo_arcs.sum()) + m)
+                + 4 * kdecode.DIAG_ROWS * plan.lanes)
+    cp = plan.compact_plan
+    b2_bytes = 8 * m + sum(t.numel() * t.element_size() for t in (
+        cp.arc_start, cp.src0, cp.valid, cp.tile_run0))
+    # one library call for B2's function: a gather over a source index
+    # built once, outside the timing
+    src_idx = _expand(cp.src0, cp.arc_start[1:] - cp.arc_start[:-1], dev)
+    library_ms = min(cuda_ms(lambda: torch.index_select(plan.store, 0,
+                                                         src_idx))
+                     for _ in range(3))
+    if not torch.equal(torch.index_select(plan.store, 0, src_idx),
+                       kcompact.compact(cp, plan.store)):
+        raise AssertionError("index_select differs from compact_runs")
+    del src_idx
+
     # ---- both kernels against their plain versions, slice shapes ----
     _, decode_plain_ms, diag = _decode_vs_plain(plan, errors, "slice")
     got = kcompact.compact(plan.compact_plan, plan.store)
@@ -405,13 +466,50 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
         peak_main_path_bytes=peak_main,
         peak_bytes=torch.cuda.max_memory_allocated(),
         launches=launches, decode_plain_ms=decode_plain_ms,
-        compact_plain_ms=compact_plain_ms, bit_exact=True)
+        compact_plain_ms=compact_plain_ms, b1=b1, profile=profile,
+        bounds={"bv_decode_lanes": bound(b1_bytes),
+                "compact_runs": bound(b2_bytes)},
+        library_ms={"bv_decode_lanes": None, "compact_runs": library_ms},
+        bit_exact=True)
+
+
+def profile_decode_to_csr(plan) -> dict:
+    """One ``decode_to_csr`` under ``torch.profiler``: wall time, the
+    device's busy time (kernels and copies) and its share, and the device
+    time of the largest entries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    decode_to_csr(plan)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode_to_csr(plan)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        # device activities only (kernels, copies, sets): a CPU operator's
+        # own entry repeats the device time of what it launched
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((e.key[:60], us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1 - busy / wall_ms),
+                top=[dict(name=k, device_ms=v, count=c)
+                     for k, v, c in rows[:8]])
 
 
 def main() -> int:
     t_start = time.perf_counter()
     dev = phase_device()
-    phase_build()
+    ptxas = phase_build()
     errors = Errors()
     phase_kernels(dev, errors)
     t0 = time.perf_counter()
@@ -424,17 +522,22 @@ def main() -> int:
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"], launches=res["launches"][k],
                     max_abs_err=errors.err[k], ms=times[k][0],
-                    plain_ms=times[k][1])
+                    plain_ms=times[k][1], bound_ms=res["bounds"][k][0],
+                    bound_by=res["bounds"][k][1],
+                    library_ms=res["library_ms"][k])
                for k, v in KERNELS.items()]
-    # a probe site's ms and plain_ms: the sums over its cases
+    # a probe site's ms, plain_ms and bound_ms: the sums over its cases;
+    # no single library call computes a probe's chain of steps
     kernels += [dict(name=k, route="cuda", source=_CS + src, replaces=rep,
                      launches=probes[k]["launches"],
                      max_abs_err=errors.err[k], ms=probes[k]["ms"],
-                     plain_ms=probes[k]["plain_ms"])
+                     plain_ms=probes[k]["plain_ms"],
+                     bound_ms=probes[k]["bound_ms"],
+                     bound_by=probes[k]["bound_by"], library_ms=None)
                 for k, (src, rep) in PROBE_SITES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", dict(seconds=time.perf_counter() - t_start,
-                       probes_s=probes_s))
+                       probes_s=probes_s, ptxas=ptxas))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

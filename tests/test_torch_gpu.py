@@ -5,26 +5,29 @@ one (and no jax), run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-The kernels are built from ``webgraph_tpu_torch/csrc`` on first use, and the
-shared host library is rebuilt for the host.  Every value is an integer:
-every comparison is exact.
+The kernels are built from ``webgraph_tpu_torch/csrc`` on first use, the
+port's host library from ``webgraph_tpu_torch/native``.  Every value is an
+integer: every comparison is exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from webgraph_tpu import native
-from webgraph_tpu.codecs.bvgraph import BVGraphSettings
-from webgraph_tpu.codecs.bvgraph import CompressionFlags as C
-from webgraph_tpu.utils.synth import synthesize_webgraph
+from webgraph_tpu_torch import native
 from webgraph_tpu_torch.algo import hyperball as PHB
 from webgraph_tpu_torch.ops import _build
 from webgraph_tpu_torch.ops import csr as PC
 from webgraph_tpu_torch.ops import kcompact as PKC
 from webgraph_tpu_torch.ops import kdecode as PK
 from webgraph_tpu_torch.ops import kplan as PP
+from webgraph_tpu_torch.ops.bitstream import stream_words
 from webgraph_tpu_torch.ops.resolve import resolve_halos
+from webgraph_tpu_torch.settings import BVGraphSettings
+from webgraph_tpu_torch.settings import CompressionFlags as C
+from webgraph_tpu_torch.utils.synth import synthesize_webgraph
+
+from . import torch_edge_cases as E
 
 pytestmark = pytest.mark.gpu
 
@@ -41,7 +44,7 @@ SETTINGS = [BVGraphSettings(),
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    _build.use_built_native()
+    native.lib_path()
     return torch.device("cuda", 0)
 
 
@@ -89,6 +92,44 @@ def test_decode_kernel_garbled_stream(cuda):
     assert errs.any()
     # the intact first half of the stream decodes clean
     assert not errs[plan.chunk_starts[1:] < 1000].any()
+
+
+def _kernel_vs_plain(plan):
+    store_p = plan.store.clone()
+    diag = PK.decode_chunked(plan)
+    diag_p = PK.decode_lanes_plain(plan.words, plan.meta, store_p, plan.spec)
+    torch.cuda.synchronize()
+    assert torch.equal(diag, diag_p)
+    assert torch.equal(plan.store, store_p)
+    return diag
+
+
+@pytest.mark.parametrize("name", sorted(E.CASES))
+def test_decode_kernel_edge_cases(cuda, name):
+    """The inputs of test_torch_kdecode_host.py's edge cases: codes across
+    the reader's refill point, ~240 copy blocks and 40 intervals in a node,
+    a 6,000-arc node alone in its lane, a slice off the window's cycle."""
+    co, su, s, kw, graph, offsets, outd = E.build(name)
+    plan = PP.plan_kernel_decode(offsets, outd, s, graph, device=cuda, **kw)
+    diag = _kernel_vs_plain(plan)
+    assert not PK.check_diag(plan, diag).any()
+    E.check_store(plan, plan.store.cpu(), co, su)
+
+
+@pytest.mark.parametrize("garble", E.GARBLES)
+def test_decode_kernel_garbled_variants(cuda, garble):
+    """Planned on the clean stream, decoded from a damaged one, as in
+    test_torch_kdecode_host.py: kernel and twin agree on every lane."""
+    s = BVGraphSettings()
+    n = 2500
+    co, su = E.simple(*synthesize_webgraph(n, seed=7))
+    graph, _gb, offs, _ob, _st = native.bv_encode(co, su, s, threads=2)
+    offsets = native.decode_offset_stream(offs, n, s.offset_coding)
+    plan = PP.plan_kernel_decode(offsets, np.diff(co), s, graph, device=cuda,
+                                 halo_csr=(co, su), target_arcs_per_lane=24)
+    plan.words = stream_words(E.garble(graph, garble), cuda)
+    diag = _kernel_vs_plain(plan)
+    assert PK.check_diag(plan, diag).any() == (garble != "clean")
 
 
 def test_decode_rejects_cpu_cuda_mix(cuda):

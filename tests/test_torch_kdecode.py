@@ -20,6 +20,7 @@ from webgraph_tpu_torch.ops import kdecode as PK
 from webgraph_tpu_torch.ops import kplan as PP
 from webgraph_tpu_torch.ops.resolve import resolve_halos
 
+from . import torch_edge_cases as E
 from .graphs import (complete_binary_intree, complete_binary_outtree,
                      complete_graph, cycle_graph, erdos_renyi, star_graph)
 
@@ -262,3 +263,56 @@ def test_flagged_lane_is_host_filled(tmp_path):
     exp = g.to_csr()
     np.testing.assert_array_equal(co, exp.offsets)
     np.testing.assert_array_equal(succ.numpy(), exp.succ)
+
+
+@pytest.mark.parametrize("name", sorted(E.CASES))
+def test_edge_cases_match_jax(name):
+    """The decode kernel's edge inputs (``torch_edge_cases``): codes across
+    the reader's refill point, a node with ~240 copy blocks and 40
+    intervals, a lane holding one 6,000-arc node, a slice starting off the
+    window's cycle.  The port's plain twin, warm and (unsliced) cold,
+    against the JAX package's full decode, host fallback included."""
+    co, su, s, kw, graph, offsets, outd = E.build(name)
+    prep = K.plan_kernel_decode(offsets, outd, s, graph, **kw)
+    assert prep is not None
+    out, diag, hv = K.decode_full(prep)
+    errs = K.check_diag(prep, diag)
+    jco, jsu = K.chunked_to_csr(prep, out, data=graph, settings=s,
+                                errs=errs, hub_vals=hv)
+    first = kw.get("first_node", 0)
+    exp_co = co[first:] - co[first]
+    exp_su = su[co[first]:]
+    np.testing.assert_array_equal(np.asarray(jco), exp_co)
+    np.testing.assert_array_equal(np.asarray(jsu), exp_su)
+    colds = [None] if kw.get("node_base", 0) == 0 else []
+    for halo_csr in [kw["halo_csr"], *colds]:
+        pkw = dict(kw, halo_csr=halo_csr)
+        plan = PP.plan_kernel_decode(offsets, outd, s, graph, device=CPU,
+                                     **pkw)
+        if halo_csr is None:
+            resolve_halos(plan)
+        pco, psu = _port_csr(plan)
+        np.testing.assert_array_equal(pco, np.asarray(jco))
+        np.testing.assert_array_equal(psu, np.asarray(jsu))
+    if name == "hub_lane":
+        lane_arcs = plan.store_off[1:] - plan.store_off[:-1] - plan.halo_arcs
+        one = np.diff(plan.chunk_starts) == 1
+        assert (lane_arcs[one] >= 6000).any()
+
+
+def test_decode_lanes_order_and_checks_once():
+    """``order`` must be a permutation of the lanes; the lane table is
+    checked once, and again after an in-place change."""
+    spec = PK.KernelSpec.from_settings(BVGraphSettings())
+    words = torch.zeros(20, dtype=torch.int32)
+    store = torch.zeros(4, dtype=torch.int32)
+    meta = torch.zeros((3, PK.nmeta(7)), dtype=torch.int64)
+    for bad in ([0, 0, 1], [0, 1, 3], [0, 1]):
+        with pytest.raises(ValueError):
+            PK.decode_lanes(words, meta, store, spec,
+                            torch.tensor(bad, dtype=torch.int32))
+    order = torch.tensor([2, 0, 1], dtype=torch.int32)
+    assert not PK.decode_lanes(words, meta, store, spec, order).any()
+    meta[2, PK.M_BASE], meta[2, PK.M_SEG] = 2, 3   # now ends past the store
+    with pytest.raises(ValueError, match="outside the store"):
+        PK.decode_lanes(words, meta, store, spec, order)

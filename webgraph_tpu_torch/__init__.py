@@ -2,9 +2,10 @@
 
 The cold BVGraph decode -> device CSR -> HyperBall path, with the decode and
 compaction kernels written by hand in CUDA C++ for Hopper (``csrc/``).  The
-host layer (native decoder and encoder, codecs, graph containers, synthetic
-generator) is shared with ``webgraph_tpu`` and imported from there; nothing
-here imports jax.
+port owns copies of the host pieces it needs of ``webgraph_tpu``: the native
+library (``native/``), the settings (``settings``), the synthetic generator
+(``utils/synth``) and the word packer (``ops/bitstream``).  Nothing here
+imports jax or ``webgraph_tpu``.
 
 Every function that touches a device takes it explicitly.  On CPU tensors the
 kernel wrappers run their plain PyTorch versions; on CUDA tensors they launch

@@ -4,40 +4,55 @@
 // Replaces: the Pallas lane-per-chunk decode kernel of the JAX package
 // (webgraph_tpu/ops/kdecode.py, _make_kernel, launched by _run_tile).
 //
-// What bounds it on this card: the per-node state machine is branchy integer
-// work with data-dependent control flow, so the warps diverge and the kernel
-// is bound by instruction throughput and by the latency of its scattered
-// loads (three stream words per code read, one store word per copied
-// successor), not by bandwidth: the stream is ~2 bits per arc and the store
-// 4 bytes per arc.  Measured on an H100 (700 W): 57.7 ms for 355M arcs over
-// 2^20 lanes, a few tens of GB/s of traffic.
+// What bounds it on this card: instruction issue across diverging lanes.
+// The bytes it must move (the ~2.2-bit-per-arc stream, the lane table, the
+// halo rows read and 4 bytes a successor written) take 0.57 ms at
+// 3.35 TB/s for the uk-2002-scale slice (355M arcs, 2^20 lanes); each lane
+// is a sequential decoder, a chain of dependent integer steps, and a warp's
+// 32 lanes are at different places of their streams.  The first design (one
+// 9-way state-machine arm a step, three scattered stream words loaded per
+// code, 64-bit state, the window in local memory) took 58 ms.  This one
+// takes ~14 ms on an H100 80GB HBM3 at 700 W (PERF.md, kernel table), ~4% of
+// its bound: issue, not bytes, still bounds it.
 //
-// What the design does about it: nothing clever yet.  The TPU kernel swept
-// every per-lane read as a masked compare-sum over VMEM because Mosaic could
-// not lower gathers; here every read is an indexed load.  All lanes share one
-// copy of the packed stream and read a code at any bit position directly
-// (no per-lane columns, no refill buffer), the lane's store segment is sized
-// exactly from the known outdegrees (no column cap, no hub split), and
-// blocks and intervals are re-read lazily from saved bit cursors instead of
-// being held in scratch (no BMAX/IMAX cap: E_BLK_OVF and E_INT_OVF are never
-// set).  Cost-balanced chunking in the planner keeps the slowest lane short.
-// One loop iteration is one state-machine step, exactly as the plain PyTorch
-// twin (ops/kdecode.py, decode_lanes_plain) steps its lanes, so the two give
-// the same store and the same diagnostics, STEPS included.
+// What the design does about it:
+//  * Each code is decoded from a 64-bit bit buffer in registers with one
+//    clz and shifts; a word is loaded only when fewer than 32 bits are left,
+//    and the next word is always already in flight.  Copy blocks and
+//    intervals, re-read while emitting, have readers of their own.
+//  * One loop iteration is one step of the state machine, and every lane
+//    reads its step's code (a header code or a residual gap) at one place in
+//    the loop, so the lanes of a warp decode together whatever step each is
+//    at; only the small per-state bookkeeping diverges.  (A node-at-a-time
+//    form with straight-line headers and tight emit loops measured no faster:
+//    its lanes diverge across whole header and emit blocks.)
+//  * The sources of the next four copied successors are loaded ahead.
+//  * The emit state is 32-bit (counts saturate where no node can reach
+//    them); the window lives in shared memory: no stack frame, no spills.
+//  * Threads take the lanes costliest first (LanePlan.order): the long lanes
+//    start in the first wave, and a warp's lanes cost about the same, where
+//    in plan order a warp waits for its costliest lane (a hub among short
+//    ones).  This alone took the kernel from ~19 to ~14 ms.
 //
-// A step either commits all its effects or, when it raises an error bit,
-// none of them: the lane then stops with ERR set and WCUR/NODES describing
-// the last committed step.
+// The lane's results are those of the JAX kernel's state machine, stepped
+// one step per code read or arc written, as the plain PyTorch twin
+// (ops/kdecode.py, decode_lanes_plain) steps its lanes: the same store, and
+// the same diagnostics, STEPS (the number of such steps) included.  A step
+// that raises an error bit commits nothing: the lane stops with ERR set and
+// WCUR/NODES describing the last committed step.  The wrapper guarantees
+// what makes the 32-bit fields exact: node ids below 2^31, segments and
+// window entries below 2^30.
 
+// WG_HOST_BUILD compiles the kernel body as plain C++ with a header that
+// defines the CUDA qualifiers away (tests/test_torch_kdecode_host.py), so
+// the CPU tests run this very code against the plain twin.
+#ifndef WG_HOST_BUILD
 #include <cuda_runtime.h>
+#endif
 #include <stdint.h>
 
 namespace {
 
-// states (the values of the JAX kernel's ST_*)
-constexpr int ST_DONE = 0, ST_OUTD = 1, ST_REF = 2, ST_BC = 3, ST_BLK = 4,
-              ST_ICNT = 5, ST_ILEFT = 6, ST_ILEN = 7, ST_RESF = 8,
-              ST_EMIT = 9;
 // code kinds (CompressionFlags)
 constexpr int K_DELTA = 1, K_GAMMA = 2, K_UNARY = 5, K_ZETA = 6;
 // error bits (E_*)
@@ -45,75 +60,186 @@ constexpr uint32_t E_UNARY = 1, E_WIDTH = 2, E_COUNT = 16, E_WCUR = 32;
 constexpr int DIAG_ROWS = 4;
 constexpr int64_t INF = int64_t(1) << 62;
 constexpr int MAXCYC = 8;
+constexpr int32_t CAP = 0x7fffffff;
 
-struct Stream {
-  const uint32_t* w;
-  int64_t nw;  // words readable; beyond reads as zero
+__device__ __forceinline__ int32_t sat(int64_t v) {  // v >= 0
+  return v < CAP ? int32_t(v) : CAP;
+}
+// Threads a block; tools/b1_sweep.py builds other values.  On the H100, 128
+// measured best (64 the same, 256 1.5% slower); bounding the registers to
+// 64 (8 blocks an SM) spilled and took 2.3x as long.
+#ifndef WG_B1_THREADS
+#define WG_B1_THREADS 128
+#endif
+constexpr int THREADS = WG_B1_THREADS;
 
-  __device__ __forceinline__ uint64_t word(int64_t i) const {
-    return i < nw ? uint64_t(w[i]) : 0ull;
-  }
-  // the 64 stream bits starting at bit pos, MSB first
-  __device__ __forceinline__ uint64_t top64(int64_t pos) const {
-    int64_t i = pos >> 5;
-    int r = int(pos & 31);
-    uint64_t v = (word(i) << 32) | word(i + 1);
-    if (r) v = (v << r) | (word(i + 2) >> (32 - r));
+__device__ __forceinline__ uint32_t word_at(const uint32_t* w, int64_t nw,
+                                            int64_t i) {
+  return i < nw ? __ldg(w + i) : 0u;
+}
+
+// One instantaneous code at absolute bit position *pos, reading three
+// stream words per part: the reader's path when its buffer holds no set bit
+// (a unary run of 32 bits or more), and the definition of every result.
+__device__ __forceinline__ int64_t read_at(const uint32_t* w, int64_t nw,
+                                           int64_t* pos, int kind, int zk,
+                                           uint32_t* e) {
+  auto top64 = [&](int64_t p) {
+    int64_t i = p >> 5;
+    int r = int(p & 31);
+    uint64_t v = (uint64_t(word_at(w, nw, i)) << 32) | word_at(w, nw, i + 1);
+    if (r) v = (v << r) | (word_at(w, nw, i + 2) >> (32 - r));
     return v;
+  };
+  auto bits = [&](int64_t p, int nb) {
+    return nb > 0 ? int64_t(top64(p) >> (64 - nb)) : int64_t(0);
+  };
+  int64_t p = *pos;
+  uint64_t t = top64(p);
+  if (t == 0) {
+    *e |= E_UNARY;
+    return 0;
   }
-  // nb (0..32) bits at bit pos
-  __device__ __forceinline__ int64_t bits(int64_t pos, int nb) const {
-    return nb > 0 ? int64_t(top64(pos) >> (64 - nb)) : 0;
-  }
-  // one instantaneous code at *pos; advances *pos, ORs error bits into *e
-  __device__ int64_t read(int64_t* pos, int kind, int zk, uint32_t* e) const {
-    int64_t p = *pos;
-    uint64_t t = top64(p);
-    if (t == 0) {
-      *e |= E_UNARY;
+  int u = __clzll((long long)t);
+  int64_t v = 0, adv = 0;
+  if (kind == K_UNARY) {
+    v = u;
+    adv = u + 1;
+  } else if (kind == K_GAMMA || kind == K_DELTA) {
+    if (u > 31) {
+      *e |= E_WIDTH;
       return 0;
     }
-    int u = __clzll((long long)t);
-    int64_t v = 0, adv = 0;
-    if (kind == K_UNARY) {
-      v = u;
-      adv = u + 1;
-    } else if (kind == K_GAMMA || kind == K_DELTA) {
-      if (u > 31) {
+    int64_t g = ((int64_t(1) << u) | bits(p + u + 1, u)) - 1;
+    adv = 2 * u + 1;
+    if (kind == K_GAMMA) {
+      v = g;
+    } else {
+      if (g > 31) {
         *e |= E_WIDTH;
         return 0;
       }
-      int64_t g = ((int64_t(1) << u) | bits(p + u + 1, u)) - 1;
-      adv = 2 * u + 1;
-      if (kind == K_GAMMA) {
-        v = g;
-      } else {
-        if (g > 31) {
-          *e |= E_WIDTH;
-          return 0;
-        }
-        int eb = int(g);
-        v = ((int64_t(1) << eb) | bits(p + adv, eb)) - 1;
-        adv += eb;
+      int eb = int(g);
+      v = ((int64_t(1) << eb) | bits(p + adv, eb)) - 1;
+      adv += eb;
+    }
+  } else if (kind == K_ZETA) {
+    int64_t l1 = int64_t(u) * zk + (zk - 1);
+    if (l1 > 32) {
+      *e |= E_WIDTH;
+      return 0;
+    }
+    int64_t m = bits(p + u + 1, int(l1));
+    int64_t left = int64_t(1) << (u * zk);
+    if (m < left) {
+      v = m + left - 1;
+      adv = u + 1 + l1;
+    } else {
+      v = (m << 1) + bits(p + u + 1 + l1, 1) - 1;
+      adv = u + 2 + l1;
+    }
+  }
+  *pos = p + adv;
+  return v;
+}
+
+// The stream from bit position pos() on: its next n bits (32..64 after a
+// fill) MSB-first at the top of buf, zeros below; nxt is word wi, loaded
+// ahead of its use.
+struct Reader {
+  const uint32_t* w;
+  int64_t nw;
+  uint64_t buf;
+  int n;
+  int64_t wi;
+  uint32_t nxt;
+
+  __device__ __forceinline__ void seek(int64_t pos) {
+    wi = pos >> 5;
+    int r = int(pos & 31);
+    buf = ((uint64_t(word_at(w, nw, wi)) << 32) | word_at(w, nw, wi + 1))
+          << r;
+    n = 64 - r;
+    wi += 2;
+    nxt = word_at(w, nw, wi);
+  }
+  __device__ __forceinline__ int64_t pos() const { return wi * 32 - n; }
+  __device__ __forceinline__ void fill() {
+    if (n <= 32) {
+      buf |= uint64_t(nxt) << (32 - n);
+      n += 32;
+      nxt = word_at(w, nw, ++wi);
+    }
+  }
+  // the next nb (0..32 <= n) bits
+  __device__ __forceinline__ uint32_t take(int nb) {
+    uint32_t v = uint32_t((buf >> 32) >> (32 - nb));
+    buf <<= nb;
+    n -= nb;
+    return v;
+  }
+  // one code of `kind`; false (error bits in *e) on a bad code
+  __device__ __forceinline__ bool read(int kind, int zk, int64_t* out,
+                                       uint32_t* e) {
+    fill();
+    if (buf == 0) {
+      int64_t p = pos();
+      uint32_t ee = 0;
+      int64_t v = read_at(w, nw, &p, kind, zk, &ee);
+      if (ee) {
+        *e |= ee;
+        return false;
       }
-    } else if (kind == K_ZETA) {
-      int64_t l1 = int64_t(u) * zk + (zk - 1);
+      seek(p);
+      *out = v;
+      return true;
+    }
+    int u = __clzll((long long)buf);  // u < n
+    if (kind == K_UNARY) {
+      buf = (buf << u) << 1;
+      n -= u + 1;
+      *out = u;
+      return true;
+    }
+    if (kind == K_ZETA) {
+      int l1 = u * zk + (zk - 1);
       if (l1 > 32) {
         *e |= E_WIDTH;
-        return 0;
+        return false;
       }
-      int64_t m = bits(p + u + 1, int(l1));
-      int64_t left = int64_t(1) << (u * zk);
+      buf <<= u + 1;  // u <= 32
+      n -= u + 1;
+      fill();
+      uint64_t m = take(l1);
+      uint64_t left = uint64_t(1) << (u * zk);
       if (m < left) {
-        v = m + left - 1;
-        adv = u + 1 + l1;
+        *out = int64_t(m + left - 1);
       } else {
-        v = (m << 1) + bits(p + u + 1 + l1, 1) - 1;
-        adv = u + 2 + l1;
+        fill();
+        *out = int64_t((m << 1) + take(1)) - 1;
       }
+      return true;
     }
-    *pos = p + adv;
-    return v;
+    // gamma, delta
+    if (u > 31) {
+      *e |= E_WIDTH;
+      return false;
+    }
+    buf <<= u + 1;
+    n -= u + 1;
+    fill();
+    uint32_t g = ((1u << u) | take(u)) - 1u;
+    if (kind == K_GAMMA) {
+      *out = g;
+      return true;
+    }
+    if (g > 31) {
+      *e |= E_WIDTH;
+      return false;
+    }
+    fill();
+    *out = int64_t(((1u << g) | take(int(g))) - 1u);
+    return true;
   }
 };
 
@@ -121,169 +247,203 @@ __device__ __forceinline__ int64_t nat2int(int64_t v) {
   return (v >> 1) ^ -(v & 1);
 }
 
-__device__ __forceinline__ int64_t pmod(int64_t a, int64_t b) {
-  int64_t r = a % b;
-  return r < 0 ? r + b : r;
-}
-
 struct Spec {
   int W, minint, zk, k_outd, k_ref, k_bc, k_blk, k_res;
 };
 
-__global__ void bv_decode_lanes_kernel(const uint32_t* __restrict__ words,
-                                       int64_t nwords,
-                                       const int64_t* __restrict__ meta,
-                                       int64_t nmeta, int64_t lanes,
-                                       int32_t* store, int32_t* diag,
-                                       Spec sp) {
-  int64_t lane = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const Stream S{words, nwords};
+// the states of a lane (the values of the JAX kernel's ST_*)
+constexpr int ST_DONE = 0, ST_OUTD = 1, ST_REF = 2, ST_BC = 3, ST_BLK = 4,
+              ST_ICNT = 5, ST_ILEFT = 6, ST_ILEN = 7, ST_RESF = 8,
+              ST_EMIT = 9;
+
+__global__ void __launch_bounds__(THREADS)
+    bv_decode_lanes_kernel(const uint32_t* __restrict__ words, int64_t nwords,
+                           const int64_t* __restrict__ meta, int64_t nmeta,
+                           int64_t lanes, int32_t* store, int32_t* diag,
+                           const int32_t* __restrict__ order, Spec sp) {
+  // the (W+1)-slot window of each thread: outdegree and first row of the
+  // lists of its chunk's last W+1 nodes, keyed by global node id
+  __shared__ int32_t s_wd[MAXCYC][THREADS];
+  __shared__ int32_t s_wr[MAXCYC][THREADS];
+  const int tid = threadIdx.x;
+  const int64_t t = int64_t(blockIdx.x) * THREADS + tid;
+  if (t >= lanes) return;
+  const int64_t lane = order ? order[t] : t;
   const int64_t* mt = meta + lane * nmeta;
   const int CYC = sp.W + 1;
-  const int64_t n_nodes = mt[0];
-  int64_t pos = mt[1];
-  int64_t x = mt[2];
-  int64_t wcur = mt[3];
-  const int64_t base = mt[4];
-  const int64_t seg_len = mt[5];
-  int64_t win_d[MAXCYC], win_row[MAXCYC];
+  const int32_t n_nodes = int32_t(mt[0]);
+  int32_t x = int32_t(mt[2]);
+  int32_t wcur = int32_t(mt[3]);
+  int32_t* const seg = store + mt[4];
+  const int32_t seg_len = int32_t(mt[5]);
   for (int s = 0; s < CYC; ++s) {
-    win_d[s] = mt[6 + s];
-    win_row[s] = mt[6 + CYC + s];
+    s_wd[s][tid] = int32_t(mt[6 + s]);
+    s_wr[s][tid] = int32_t(mt[6 + CYC + s]);
   }
+  const int zk = sp.zk;
+  // the code kind each header state reads, 3 bits a state
+  const uint32_t kinds =
+      (uint32_t(sp.k_outd) << 3 * ST_OUTD) | (uint32_t(sp.k_ref) << 3 * ST_REF) |
+      (uint32_t(sp.k_bc) << 3 * ST_BC) | (uint32_t(sp.k_blk) << 3 * ST_BLK) |
+      (uint32_t(K_GAMMA) << 3 * ST_ICNT) | (uint32_t(K_GAMMA) << 3 * ST_ILEFT) |
+      (uint32_t(K_GAMMA) << 3 * ST_ILEN) | (uint32_t(sp.k_res) << 3 * ST_RESF);
+  Reader R{words, nwords, 0, 0, 0, 0};   // headers and residuals
+  Reader BR{words, nwords, 0, 0, 0, 0};  // copy blocks, re-read to emit
+  Reader IR{words, nwords, 0, 0, 0, 0};  // intervals, re-read to emit
+  R.seek(mt[1]);
 
+  uint32_t err = 0, steps = 0;
+  int32_t node = 0, nrow = wcur, ref_row = 0;
+  int xs = x % CYC;  // x's window slot
   int st = n_nodes > 0 ? ST_OUTD : ST_DONE;
-  uint32_t err = 0;
-  int64_t steps = 0, node = 0, nrow = wcur;
-  int64_t d = 0, ref = 0, ref_len = 0, ref_row = 0, cop = 0, extra = 0;
-  int64_t bc = 0, blk_i = 0, blk_tot = 0, blk_cop = 0, blk0 = 0, cblk = 0;
-  int64_t icnt = 0, i_idx = 0, iprev = 0, ileft = 0, ipos0 = 0, ipos = 0;
-  int64_t e_rem = 0, c_rem = 0, c_idx = 0, krem = 0, bj = 0;
-  int64_t iv = 0, ilen_rem = 0, i_next = 0, r_rem = 0, r_val = 0;
-
-  // helpers that run only after a step's checks passed
-  auto node_done = [&]() {
-    int s = int(pmod(x, CYC));
-    win_d[s] = d;
-    win_row[s] = nrow;
-    nrow = wcur;
-    ++node;
-    ++x;
-    st = node >= n_nodes ? ST_DONE : ST_OUTD;
-  };
-  auto init_emit = [&](bool from_resf) {
-    e_rem = d;
-    if (!from_resf) r_rem = 0;
-    if (ref > 0 && cop > 0) {
-      c_rem = cop;
-      c_idx = 0;
-      bj = 0;
-      krem = bc > 0 ? blk0 : INF;
-    } else {
-      c_rem = 0;
-    }
-    ilen_rem = 0;
-    i_next = 0;
-    ipos = ipos0;
-    iprev = 0;
-    st = ST_EMIT;
-  };
-  // cop/extra are final; extra >= 0 was checked
-  auto setup = [&]() {
-    icnt = 0;
-    if (extra == 0)
-      init_emit(false);
-    else
-      st = sp.minint ? ST_ICNT : ST_RESF;
+  int64_t d = 0, ref = 0, ref_len = 0, cop = 0, extra = 0, bc = 0;
+  int64_t blk_i = 0, blk_tot = 0, blk_cop = 0, blk0 = 0, cblk = 0;
+  int64_t icnt = 0, i_idx = 0, ipos0 = 0, bj = 0;
+  // the emit state, 32-bit: counts saturate at CAP, which no count of a
+  // node reaches before its segment overflows (E_WCUR), so every test on
+  // them comes out as on the exact count; values stay 64-bit
+  int32_t e_rem = 0, c_rem = 0, c_idx = 0, krem = 0, ilen_rem = 0;
+  int32_t i_next = 0, icnt32 = 0, r_rem = 0;
+  int64_t iv = 0, iprev = 0, r_val = 0;
+  // the sources of the next four copied arcs (rows ref_row + c_idx ...),
+  // loaded ahead; a row at or past nrow is never used (E_COUNT first)
+  int32_t c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+  auto src = [&](int64_t r) { return r < nrow ? seg[r] : 0; };
+  auto refill_copies = [&]() {
+    const int64_t r = int64_t(ref_row) + c_idx;
+    c0 = src(r);
+    c1 = src(r + 1);
+    c2 = src(r + 2);
+    c3 = src(r + 3);
   };
 
   while (st != ST_DONE) {
     ++steps;
-    uint32_t e = 0;
+    int kind = 0;
+    int win = 0;
+    int64_t val = 0;
+    if (st == ST_EMIT) {
+      if (c_rem > 0 && krem == 0) {
+        // copy stream: the next skip block and keep block
+        int64_t v1, v2 = 0;
+        const bool more = bj + 2 < bc;
+        if (!BR.read(sp.k_blk, zk, &v1, &err)) break;
+        if (more && !BR.read(sp.k_blk, zk, &v2, &err)) break;
+        c_idx = sat(c_idx + v1 + 1);
+        krem = more ? int32_t(v2 + 1) : CAP;
+        bj += 2;
+        refill_copies();
+        continue;
+      }
+      if (ilen_rem == 0 && i_next < icnt32) {
+        // interval stream: the next (left, length)
+        int64_t v1, v2;
+        if (!IR.read(K_GAMMA, zk, &v1, &err)) break;
+        if (!IR.read(K_GAMMA, zk, &v2, &err)) break;
+        const int64_t left = i_next == 0 ? nat2int(v1) + x : v1 + iprev + 1;
+        iv = left;
+        iprev = left + v2 + sp.minint;
+        ilen_rem = sat(v2 + sp.minint);
+        ++i_next;
+        continue;
+      }
+      // one successor: the least head of the three streams
+      int64_t cval = INF;
+      if (c_rem > 0) {
+        const int64_t r = int64_t(ref_row) + c_idx;
+        if (r < 0 || r >= nrow) {
+          err |= E_COUNT;
+          break;
+        }
+        cval = c0;
+      }
+      const int64_t ival = ilen_rem > 0 ? iv : INF;
+      const int64_t rv = r_rem > 0 ? r_val : INF;
+      if (cval <= ival && cval <= rv) {
+        val = cval;
+      } else if (ival <= rv) {
+        win = 1;
+        val = ival;
+      } else {
+        win = 2;
+        val = rv;
+      }
+      if (val == INF) {
+        err |= E_COUNT;
+        break;
+      }
+      if (wcur >= seg_len) {
+        err |= E_WCUR;
+        break;
+      }
+      if (win == 2 && r_rem > 1) kind = sp.k_res;
+    } else {
+      kind = (kinds >> (3 * st)) & 7;
+    }
+    // the step's one code from the main stream, read by every lane at once
+    int64_t v = 0;
+    if (kind && !R.read(kind, zk, &v, &err)) break;
+
+    bool setup = false, init = false, from_resf = false, node_fin = false;
     switch (st) {
-      case ST_OUTD: {
-        int64_t p = pos;
-        int64_t v = S.read(&p, sp.k_outd, sp.zk, &e);
-        if (e) break;
-        pos = p;
+      case ST_OUTD:
         d = v;
         if (d == 0) {
-          node_done();
+          node_fin = true;
         } else if (sp.W > 0) {
           st = ST_REF;
         } else {
-          ref = 0;
-          bc = 0;
-          cop = 0;
+          ref = bc = cop = 0;
           extra = d;
-          setup();
+          setup = true;
         }
         break;
-      }
-      case ST_REF: {
-        int64_t p = pos;
-        int64_t v = S.read(&p, sp.k_ref, sp.zk, &e);
-        if (e) break;
-        pos = p;
+      case ST_REF:
         ref = v;
         if (ref > 0) {
-          int s = int(pmod(x - ref, CYC));
-          ref_len = win_d[s];
-          ref_row = win_row[s];
+          int s = xs - int(ref < CYC ? ref : ref % CYC);
+          if (s < 0) s += CYC;
+          ref_len = s_wd[s][tid];
+          ref_row = s_wr[s][tid];
           st = ST_BC;
         } else {
-          bc = 0;
-          cop = 0;
+          bc = cop = 0;
           extra = d;
-          setup();
+          setup = true;
         }
         break;
-      }
-      case ST_BC: {
-        int64_t p = pos;
-        int64_t v = S.read(&p, sp.k_bc, sp.zk, &e);
-        if (e) break;
+      case ST_BC:
         if (v == 0) {
           if (d - ref_len < 0) {
-            e |= E_COUNT;
-            break;
+            err |= E_COUNT;
+            goto out;
           }
-          pos = p;
           bc = 0;
           cop = ref_len;
           extra = d - cop;
-          setup();
+          setup = true;
         } else {
-          pos = p;
           bc = v;
-          blk_i = 0;
-          blk_tot = 0;
-          blk_cop = 0;
+          blk_i = blk_tot = blk_cop = 0;
           st = ST_BLK;
         }
         break;
-      }
       case ST_BLK: {
-        int64_t p = pos;
-        int64_t v = S.read(&p, sp.k_blk, sp.zk, &e);
-        if (e) break;
-        int64_t bval = blk_i == 0 ? v : v + 1;
-        int64_t tot = blk_tot + bval;
-        int64_t copc = blk_cop + ((blk_i & 1) == 0 ? bval : 0);
-        int64_t bi = blk_i + 1;
+        const int64_t bval = blk_i == 0 ? v : v + 1;
+        const int64_t tot = blk_tot + bval;
+        const int64_t copc = blk_cop + ((blk_i & 1) == 0 ? bval : 0);
+        const int64_t bi = blk_i + 1;
         int64_t cop_n = 0;
         if (bi == bc) {
           cop_n = copc + ((bc & 1) == 0 ? ref_len - tot : 0);
           if (tot > ref_len || d - cop_n < 0) {
-            e |= E_COUNT;
-            break;
+            err |= E_COUNT;
+            goto out;
           }
         }
-        pos = p;
         if (blk_i == 0) {
           blk0 = bval;
-          cblk = p;
+          cblk = R.pos();
         }
         blk_tot = tot;
         blk_cop = copc;
@@ -291,180 +451,125 @@ __global__ void bv_decode_lanes_kernel(const uint32_t* __restrict__ words,
         if (bi == bc) {
           cop = cop_n;
           extra = d - cop;
-          setup();
+          setup = true;
         }
         break;
       }
-      case ST_ICNT: {
-        int64_t p = pos;
-        int64_t v = S.read(&p, K_GAMMA, sp.zk, &e);
-        if (e) break;
-        pos = p;
+      case ST_ICNT:
         icnt = v;
         i_idx = 0;
-        iprev = 0;
-        ipos0 = p;
+        ipos0 = R.pos();
         st = icnt > 0 ? ST_ILEFT : ST_RESF;
         break;
-      }
-      case ST_ILEFT: {
-        int64_t p = pos;
-        int64_t v = S.read(&p, K_GAMMA, sp.zk, &e);
-        if (e) break;
-        pos = p;
-        ileft = i_idx == 0 ? nat2int(v) + x : v + iprev + 1;
+      case ST_ILEFT:
         st = ST_ILEN;
         break;
-      }
       case ST_ILEN: {
-        int64_t p = pos;
-        int64_t v = S.read(&p, K_GAMMA, sp.zk, &e);
-        if (e) break;
-        int64_t ln = v + sp.minint;
+        const int64_t ln = v + sp.minint;
         if (extra - ln < 0) {
-          e |= E_COUNT;
-          break;
+          err |= E_COUNT;
+          goto out;
         }
-        pos = p;
-        iprev = ileft + ln;
         extra -= ln;
-        ++i_idx;
-        if (i_idx == icnt) {
+        if (++i_idx == icnt) {
           if (extra > 0)
             st = ST_RESF;
           else
-            init_emit(false);
+            init = true;
         } else {
           st = ST_ILEFT;
         }
         break;
       }
-      case ST_RESF: {
-        int64_t p = pos;
-        int64_t v = S.read(&p, sp.k_res, sp.zk, &e);
-        if (e) break;
-        pos = p;
+      case ST_RESF:
         r_val = nat2int(v) + x;
-        r_rem = extra;
-        init_emit(true);
+        r_rem = sat(extra);
+        init = from_resf = true;
         break;
-      }
-      case ST_EMIT: {
-        if (c_rem > 0 && krem == 0) {
-          // copy stream: skip run + next keep run, re-read from the blocks
-          int64_t p = cblk;
-          int64_t v1 = S.read(&p, sp.k_blk, sp.zk, &e);
-          bool more = bj + 2 < bc;
-          int64_t v2 = 0;
-          if (more) v2 = S.read(&p, sp.k_blk, sp.zk, &e);
-          if (e) break;
-          c_idx += v1 + 1;
-          krem = more ? v2 + 1 : INF;
-          bj += 2;
-          cblk = p;
-        } else if (ilen_rem == 0 && i_next < icnt) {
-          // interval stream: next (left, length), re-read from the stream
-          int64_t p = ipos;
-          int64_t v1 = S.read(&p, K_GAMMA, sp.zk, &e);
-          int64_t v2 = S.read(&p, K_GAMMA, sp.zk, &e);
-          if (e) break;
-          int64_t left = i_next == 0 ? nat2int(v1) + x : v1 + iprev + 1;
-          iv = left;
-          ilen_rem = v2 + sp.minint;
-          iprev = left + ilen_rem;
-          ++i_next;
-          ipos = p;
-        } else {
-          int64_t cval = INF;
-          if (c_rem > 0) {
-            int64_t r = ref_row + c_idx;
-            if (r < 0 || r >= nrow) {
-              e |= E_COUNT;
-              break;
-            }
-            cval = store[base + r];
-          }
-          int64_t ival = ilen_rem > 0 ? iv : INF;
-          int64_t rv = r_rem > 0 ? r_val : INF;
-          int win;
-          int64_t val;
-          if (cval <= ival && cval <= rv) {
-            win = 0;
-            val = cval;
-          } else if (ival <= rv) {
-            win = 1;
-            val = ival;
-          } else {
-            win = 2;
-            val = rv;
-          }
-          if (val == INF) {
-            e |= E_COUNT;
-            break;
-          }
-          if (wcur >= seg_len) {
-            e |= E_WCUR;
-            break;
-          }
-          int64_t p = pos, gap = 0;
-          if (win == 2 && r_rem > 1) gap = S.read(&p, sp.k_res, sp.zk, &e);
-          if (e) break;
-          bool done = e_rem == 1;
-          if (done && (c_rem - (win == 0) != 0 || ilen_rem - (win == 1) != 0 ||
-                       i_next != icnt || r_rem - (win == 2) != 0)) {
-            e |= E_COUNT;
-            break;
-          }
-          store[base + wcur] = int32_t(val);
-          ++wcur;
-          --e_rem;
-          if (win == 0) {
-            --c_rem;
-            ++c_idx;
-            --krem;
-          } else if (win == 1) {
-            ++iv;
-            --ilen_rem;
-          } else {
-            --r_rem;
-            if (r_rem > 0) {
-              r_val += gap + 1;
-              pos = p;
-            }
-          }
-          if (done) node_done();
+      default: {  // ST_EMIT, one successor
+        const bool done = e_rem == 1;
+        if (done && (c_rem - (win == 0) != 0 || ilen_rem - (win == 1) != 0 ||
+                     i_next != icnt32 || r_rem - (win == 2) != 0)) {
+          err |= E_COUNT;
+          goto out;
         }
-        break;
+        seg[wcur++] = int32_t(val);
+        --e_rem;
+        if (win == 0) {
+          --c_rem;
+          ++c_idx;
+          --krem;
+          c0 = c1;
+          c1 = c2;
+          c2 = c3;
+          c3 = src(int64_t(ref_row) + c_idx + 3);
+        } else if (win == 1) {
+          ++iv;
+          --ilen_rem;
+        } else if (--r_rem > 0) {
+          r_val += v + 1;
+        }
+        node_fin = done;
       }
     }
-    if (e) {
-      err |= e;
-      break;
+    if (setup) {
+      icnt = 0;
+      if (extra == 0)
+        init = true;
+      else
+        st = sp.minint ? ST_ICNT : ST_RESF;
+    }
+    if (init) {
+      e_rem = sat(d);
+      if (!from_resf) r_rem = 0;
+      c_rem = ref > 0 && cop > 0 ? int32_t(cop) : 0;  // cop <= ref_len < 2^30
+      icnt32 = sat(icnt);
+      if (c_rem > 0) {
+        c_idx = 0;
+        bj = 0;
+        krem = bc > 0 ? int32_t(blk0) : CAP;  // blk0 <= ref_len
+        if (bc > 0) BR.seek(cblk);
+        refill_copies();
+      }
+      ilen_rem = i_next = iprev = 0;
+      if (icnt > 0) IR.seek(ipos0);
+      st = ST_EMIT;
+    }
+    if (node_fin) {
+      s_wd[xs][tid] = int32_t(d);
+      s_wr[xs][tid] = nrow;
+      nrow = wcur;
+      ++node;
+      ++x;
+      if (++xs == CYC) xs = 0;
+      st = node >= n_nodes ? ST_DONE : ST_OUTD;
     }
   }
+out:
   int32_t* dg = diag + lane * DIAG_ROWS;
   dg[0] = int32_t(err);
-  dg[1] = int32_t(wcur);
-  dg[2] = int32_t(node);
+  dg[1] = wcur;
+  dg[2] = node;
   dg[3] = int32_t(steps);
 }
 
 }  // namespace
 
+#ifndef WG_HOST_BUILD
 extern "C" int wg_bv_decode_lanes(const void* words, int64_t nwords,
                                   const void* meta, int64_t nmeta,
                                   int64_t lanes, void* store, void* diag,
-                                  int W, int minint, int zk, int k_outd,
+                                  const void* order, int W, int minint, int zk, int k_outd,
                                   int k_ref, int k_bc, int k_blk, int k_res,
                                   void* stream) {
   if (lanes > 0) {
     Spec sp{W, minint, zk, k_outd, k_ref, k_bc, k_blk, k_res};
-    const int threads = 128;
-    const int64_t blocks = (lanes + threads - 1) / threads;
-    bv_decode_lanes_kernel<<<dim3(unsigned(blocks)), threads, 0,
+    const int64_t blocks = (lanes + THREADS - 1) / THREADS;
+    bv_decode_lanes_kernel<<<dim3(unsigned(blocks)), THREADS, 0,
                              (cudaStream_t)stream>>>(
         (const uint32_t*)words, nwords, (const int64_t*)meta, nmeta, lanes,
-        (int32_t*)store, (int32_t*)diag, sp);
+        (int32_t*)store, (int32_t*)diag, (const int32_t*)order, sp);
   }
   return int(cudaGetLastError());
 }
+#endif  // WG_HOST_BUILD

@@ -2,11 +2,15 @@
 
 The CUDA kernels (``csrc/*.cu``) are compiled with ``nvcc`` for ``sm_90a``
 into one shared library with a plain C interface, loaded with ctypes.  The
-shared host library of the JAX package (``webgraph_tpu/native/wgnative.cpp``)
-is compiled with ``g++`` for the host it runs on.  Both land in
-``webgraph_tpu_torch/build/`` on first use, under file names keyed by a hash
-of their sources, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing is built when this module is imported.
+port's host library (``native/wgnative.cpp``) is compiled with ``g++`` for
+the host it runs on.  Both land in ``webgraph_tpu_torch/build/`` on first
+use, under file names keyed by a hash of their sources, so an edited source
+is rebuilt and a stale library is never loaded.  Each build writes a file of
+its own and renames it into place, so several processes may build at once.
+Nothing is built when this module is imported.
+
+``PTXAS`` holds, per kernel of the last nvcc build in this process, what
+``-Xptxas -v`` reported: registers, stack frame and spill bytes.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
 one where it launches its kernel and nowhere else.  The main path's two
@@ -21,6 +25,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -29,8 +34,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-_WGNATIVE_SRC = os.path.join(os.path.dirname(_PKG), "webgraph_tpu", "native",
-                             "wgnative.cpp")
+_WGNATIVE_SRC = os.path.join(_PKG, "native", "wgnative.cpp")
 
 LAUNCHES = {"bv_decode_lanes": 0, "compact_runs": 0}
 # one key per ``pl.pallas_call`` site of the JAX package's probes: the CUDA
@@ -63,6 +67,7 @@ PROBE_SITES = {
 }
 LAUNCHES.update((k, 0) for k in PROBE_SITES)
 
+PTXAS = {}
 _lib = None
 
 
@@ -108,11 +113,15 @@ def build_kernels() -> str:
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     digest = _digest(srcs)
     out = os.path.join(BUILD_DIR, f"libwgtorch-{digest}.so")
+    log_path = out + ".ptxas.txt"
     if os.path.exists(out):
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                PTXAS.update(parse_ptxas(f.read()))
         return out
     nvcc = _nvcc()
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC"]
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
     objdir = os.path.join(BUILD_DIR, f"obj-{digest}.tmp{os.getpid()}")
     os.makedirs(objdir, exist_ok=True)
     objs = [os.path.join(objdir, os.path.basename(s) + ".o") for s in srcs]
@@ -120,22 +129,48 @@ def build_kernels() -> str:
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for s, o in zip(srcs, objs)]
-    failed = []
+    failed, logs = [], []
     for s, p in zip(srcs, procs):
         log, _ = p.communicate()
+        logs.append(log)
         if p.returncode != 0:
             failed.append(f"{os.path.basename(s)}:\n{log}")
     if failed:
         raise RuntimeError("build failed:\n" + "\n".join(failed))
+    PTXAS.update(parse_ptxas("".join(logs)))
+    with open(f"{log_path}.tmp{os.getpid()}", "w") as f:
+        f.write("".join(logs))
+    os.replace(f"{log_path}.tmp{os.getpid()}", log_path)
     path = _compile([nvcc, "-shared", *objs], out)
     shutil.rmtree(objdir, ignore_errors=True)
     return path
 
 
+def parse_ptxas(log: str) -> dict:
+    """``-Xptxas -v`` output -> {entry function: {regs, stack, spill_stores,
+    spill_loads}} (bytes for the last three)."""
+    res, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = res.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["regs"] = int(m.group(1))
+    return res
+
+
 def build_native() -> str:
-    """g++-build the shared host library for this host; returns its path.
-    Point ``webgraph_tpu.native._LIB_PATH`` at it before the host layer's
-    first native call."""
+    """g++-build the port's host library for this host (once per source
+    hash); returns its path.  ``native`` loads it on first use."""
     out = os.path.join(BUILD_DIR,
                        f"libwgnative-{_digest([_WGNATIVE_SRC])}.so")
     if os.path.exists(out):
@@ -144,29 +179,13 @@ def build_native() -> str:
                      "-pthread", _WGNATIVE_SRC], out)
 
 
-def use_built_native() -> str:
-    """Build the shared host library for this host and point the shared
-    host layer at it (``webgraph_tpu.native._LIB_PATH``), in place of the
-    committed binary, which was built with ``-march=native`` elsewhere.
-    Call before the host layer's first native call; returns the path."""
-    from webgraph_tpu import native
-    path = build_native()
-    if native._lib is not None and native._LIB_PATH != path:
-        raise RuntimeError(f"the host library is already loaded from "
-                           f"{native._LIB_PATH}")
-    native._LIB_PATH = path
-    if not native.available():
-        raise RuntimeError(f"the host library at {path} did not load")
-    return path
-
-
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
     if _lib is None:
         L = ctypes.CDLL(build_kernels())
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        L.wg_bv_decode_lanes.argtypes = [vp, i64, vp, i64, i64, vp, vp,
+        L.wg_bv_decode_lanes.argtypes = [vp, i64, vp, i64, i64, vp, vp, vp,
                                          ci, ci, ci, ci, ci, ci, ci, ci, vp]
         L.wg_bv_decode_lanes.restype = ci
         L.wg_compact_runs.argtypes = [vp, vp, i64, vp, vp, vp, vp, i64, i64,

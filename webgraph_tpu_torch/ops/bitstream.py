@@ -17,11 +17,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from webgraph_tpu.ops.packed import pack_words_u32
-
 K_NONE, K_DELTA, K_GAMMA, K_UNARY, K_ZETA = 0, 1, 2, 5, 6
 E_UNARY, E_WIDTH = 1, 2
 M32 = 0xFFFFFFFF
+
+
+def pack_words_u32(data) -> np.ndarray:
+    """uint8 MSB-first byte stream -> uint32 big-endian word array, with 16
+    extra zero words so readers may over-read safely."""
+    buf = np.asarray(data, dtype=np.uint8)
+    pad = (-len(buf)) % 4
+    if pad:
+        buf = np.concatenate([buf, np.zeros(pad, dtype=np.uint8)])
+    words = buf.view(">u4").astype(np.uint32)
+    return np.concatenate([words, np.zeros(16, dtype=np.uint32)])
 
 
 def stream_words(data, device) -> torch.Tensor:

@@ -18,7 +18,7 @@ import os
 import numpy as np
 import torch
 
-from webgraph_tpu import native as _native
+from .. import native as _native
 
 from .kcompact import compact, plan_compact
 from .kdecode import LanePlan, decode_chunked, lanes_flagged

@@ -11,7 +11,12 @@ across the chunk boundary sit at the head of the segment (the halo).
 
 The CUDA kernel is ``csrc/bv_decode.cu``; ``decode_lanes_plain`` is its plain
 PyTorch twin, the same step function over all lanes in lockstep.  They agree
-on the store and on every diagnostic, STEPS included.
+on the store and on every diagnostic, STEPS included.  STEPS counts the
+state machine's steps: one per header code read (outdegree, reference,
+block count, each block, interval count, each interval's left extreme and
+length, first residual), one per successor written, and one per re-read of
+a skip/keep block pair or of an interval while emitting.  The kernel runs a
+node at a time but counts, commits and stops exactly at these steps.
 
 Lane table (``meta``, int64 ``(lanes, NMETA)``; columns ``M_*``): node count,
 absolute start bit, global id of the first node, halo rows (the chunk's first
@@ -23,13 +28,14 @@ this package fills: the kernel rejects a preset lane.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import _build
-from .bitstream import K_GAMMA, K_NONE, read_code, words_i64
+from .bitstream import K_GAMMA, K_NONE, K_ZETA, read_code, words_i64
 
 # states (values of the JAX kernel's ST_*)
 ST_DONE, ST_OUTD, ST_REF, ST_BC, ST_BLK = 0, 1, 2, 3, 4
@@ -118,6 +124,7 @@ class LanePlan:
     exp_arcs: np.ndarray       # int64[lanes] expected final WCUR
     exp_nodes: np.ndarray      # int64[lanes] expected NODES
     expect: torch.Tensor       # int32 (lanes, 2) on device: the two above
+    order: torch.Tensor        # int32 (lanes,) on device: costliest first
     data: np.ndarray           # stream bytes (host fill)
     settings: object
     node_base: int = 0         # global id of plan-local node 0
@@ -150,35 +157,82 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
+# lane tables already checked, with the tensors' versions and the store
+# size they were checked against: the checks read the whole table, so they
+# run once per table and again only after an in-place change
+_CHECKED = {}   # id(meta) -> (weak refs to meta and order, key)
+
+
+def _check_lane_table(meta, store, W: int, order) -> None:
+    """One device reduction: the kernel reads and writes only inside each
+    lane's [base, base + seg) and trusts these bounds; it holds node ids,
+    rows and window entries in 32 bits, and takes the lanes in ``order``."""
+    key = (meta._version, store.numel(), W,
+           None if order is None else (id(order), order._version))
+    seen = _CHECKED.get(id(meta))
+    if (seen is not None and seen[0]() is meta and seen[2] == key
+            and (order is None or seen[1]() is order)):
+        return
+    base, seg, wcur0 = meta[:, M_BASE], meta[:, M_SEG], meta[:, M_WCUR0]
+    nodes, x = meta[:, M_NODES], meta[:, M_X]
+    win = meta[:, M_WIN:M_WIN + 2 * (W + 1)]
+    checks = [
+        (meta[:, M_WIN + 2 * (W + 1)] != 0).any(),
+        ((base < 0) | (wcur0 < 0) | (wcur0 > seg) | (meta[:, M_BIT] < 0)
+         | (base + seg > store.numel())).any(),
+        ((seg >= 1 << 30) | (nodes < 0) | (x < 0) | (x + nodes >= 1 << 31)
+         | (win < 0).any(1) | (win >= 1 << 30).any(1)).any()]
+    if order is not None:
+        L = meta.shape[0]
+        checks.append((order < 0).any() | (order >= L).any()
+                      | (torch.bincount(order.clamp(0, L - 1).to(torch.int64),
+                                        minlength=L) != 1).any())
+    bad = torch.stack(checks).tolist()
+    if bad[0]:
+        raise ValueError("preset lanes are not supported by this kernel")
+    if bad[1]:
+        raise ValueError("a lane's segment lies outside the store")
+    if bad[2]:
+        raise ValueError("a lane's node ids must fit 31 bits, its segment "
+                         "and window entries 30")
+    if order is not None and bad[3]:
+        raise ValueError("order is not a permutation of the lanes")
+    for k in [k for k, (ref, _o, _k) in _CHECKED.items() if ref() is None]:
+        del _CHECKED[k]
+    _CHECKED[id(meta)] = (weakref.ref(meta),
+                          weakref.ref(order) if order is not None else None,
+                          key)
+
+
 def decode_lanes(words: torch.Tensor, meta: torch.Tensor,
-                 store: torch.Tensor, spec: KernelSpec) -> torch.Tensor:
+                 store: torch.Tensor, spec: KernelSpec,
+                 order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode every lane of ``meta`` into ``store`` (in place); returns the
     int32 diagnostics ``(lanes, DIAG_ROWS)``.
 
-    CUDA tensors launch ``bv_decode_lanes``; CPU tensors run
-    :func:`decode_lanes_plain`."""
+    ``order``: int32, a permutation of the lanes, the order in which the
+    kernel's threads take them (``LanePlan.order``: the costliest first);
+    no result depends on it.  CUDA tensors launch ``bv_decode_lanes``; CPU
+    tensors run :func:`decode_lanes_plain`."""
     dev = meta.device
     _check(words, "words", torch.int32, 1, dev)
     _check(meta, "meta", torch.int64, 2, dev)
     _check(store, "store", torch.int32, 1, dev)
+    if order is not None:
+        _check(order, "order", torch.int32, 1, dev)
+        if order.shape[0] != meta.shape[0]:
+            raise ValueError(f"order has {order.shape[0]} lanes, meta "
+                             f"{meta.shape[0]}")
     W = spec.window_size
     if not spec.supported():
         raise ValueError(f"format outside the kernel envelope: {spec}")
     if meta.shape[1] != nmeta(W):
         raise ValueError(f"meta has {meta.shape[1]} columns, "
                          f"expected {nmeta(W)}")
+    if K_ZETA in spec.kinds() and not 1 <= spec.zeta_k <= 32:
+        raise ValueError(f"zeta_k {spec.zeta_k} outside 1..32")
     if meta.shape[0]:
-        # one device reduction: the kernel reads and writes only inside
-        # each lane's [base, base + seg) and trusts these bounds
-        base, seg, wcur0 = meta[:, M_BASE], meta[:, M_SEG], meta[:, M_WCUR0]
-        preset, outside = torch.stack([
-            (meta[:, M_WIN + 2 * (W + 1)] != 0).any(),
-            ((base < 0) | (wcur0 < 0) | (wcur0 > seg) | (meta[:, M_BIT] < 0)
-             | (base + seg > store.numel())).any()]).tolist()
-        if preset:
-            raise ValueError("preset lanes are not supported by this kernel")
-        if outside:
-            raise ValueError("a lane's segment lies outside the store")
+        _check_lane_table(meta, store, W, order)
     if dev.type == "cpu":
         return decode_lanes_plain(words, meta, store, spec)
     if dev.type != "cuda":
@@ -188,7 +242,8 @@ def decode_lanes(words: torch.Tensor, meta: torch.Tensor,
     lib = _build.lib()
     rc = lib.wg_bv_decode_lanes(
         words.data_ptr(), words.shape[0], meta.data_ptr(), meta.shape[1],
-        lanes, store.data_ptr(), diag.data_ptr(), W,
+        lanes, store.data_ptr(), diag.data_ptr(),
+        None if order is None else order.data_ptr(), W,
         spec.min_interval_length, spec.zeta_k, spec.outdegree_coding,
         spec.reference_coding, spec.block_count_coding, spec.block_coding,
         spec.residual_coding, _build.stream_ptr(meta))
@@ -530,7 +585,8 @@ def decode_lanes_plain(words: torch.Tensor, meta: torch.Tensor,
 def decode_chunked(plan: LanePlan) -> torch.Tensor:
     """Run the decode over every lane of the plan (into ``plan.store``);
     returns the diagnostics."""
-    return decode_lanes(plan.words, plan.meta, plan.store, plan.spec)
+    return decode_lanes(plan.words, plan.meta, plan.store, plan.spec,
+                        plan.order)
 
 
 def lanes_flagged(plan: LanePlan, diag: torch.Tensor) -> torch.Tensor:

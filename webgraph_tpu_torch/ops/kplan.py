@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from webgraph_tpu import native as _native
+from .. import native as _native
 
 from .bitstream import stream_words
 from .kdecode import (M_BASE, M_BIT, M_NODES, M_SEG, M_WCUR0, M_WIN, M_X,
@@ -38,14 +38,10 @@ MAX_LANES = 1 << 20
 def _needed_preds(starts, ends, refs, W, n):
     """``needed[i, j]``: chunk i's first nodes reference predecessor
     starts[i]-1-j across the boundary (only the first W nodes can, since
-    ref <= W).  Without refs every in-range predecessor is needed."""
+    ref <= W)."""
     L = len(starts)
     needed = np.zeros((L, max(W, 1)), dtype=bool)
     if W == 0:
-        return needed
-    if refs is None:
-        for j in range(W):
-            needed[:, j] = (starts - 1 - j) >= 0
         return needed
     empty = starts == ends
     lanes = np.arange(L)
@@ -95,14 +91,13 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
                        node_base: int = 0, first_node: int = 0
                        ) -> Optional[LanePlan]:
     """Build the lane plan on ``device``, or return None when the format is
-    outside the kernel's envelope (or a cold plan lacks the native scan).
+    outside the kernel's envelope.
 
     ``halo_csr``: (csr_off, succ) of every plan-local node's final list
     (warm plan); None plans cold.  ``node_base``: global id of plan-local
     node 0 (sliced plans, warm only); ``first_node``: first plan-local node
     to decode (the ones before it are halo only).  Per-node references come
-    from the native header scan; without it a warm plan takes every
-    predecessor in the window as halo."""
+    from the native header scan (``native.bv_scan_refs``)."""
     spec = KernelSpec.from_settings(settings)
     if not spec.supported():
         return None
@@ -122,11 +117,7 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
         raise ValueError("sliced plans (node_base != 0) need halo_csr")
     refs = None
     if W > 0:
-        if _native.available():
-            refs = _native.bv_scan_refs(data, offsets,
-                                        settings).astype(np.int64)
-        elif cold:
-            return None
+        refs = _native.bv_scan_refs(data, offsets, settings).astype(np.int64)
 
     L = max(1024, min(MAX_LANES, 1 << int(np.ceil(np.log2(
         max(m, 1) / target_arcs_per_lane + 1)))))
@@ -205,6 +196,10 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
                   wf_depth=D[np.clip(ys_sel - d_first, 0,
                                      max(len(D) - 1, 0))].astype(np.int64))
 
+    # threads take the costliest lanes first: long lanes start in the
+    # first wave, and a warp's 32 lanes cost about the same
+    cost = (ends - starts) * STATE_COST + arcs
+    order = np.argsort(-cost, kind="stable").astype(np.int32)
     return LanePlan(
         spec=spec, device=torch.device(device),
         words=stream_words(data, device),
@@ -214,6 +209,7 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
         exp_arcs=seg, exp_nodes=ends - starts,
         expect=torch.from_numpy(np.stack([seg, ends - starts], axis=1)
                                 .astype(np.int32)).to(device),
+        order=torch.from_numpy(order).to(device),
         data=np.asarray(data, dtype=np.uint8), settings=settings,
         node_base=node_base, arc_base=arc_base, cold=cold,
         resolved=not (cold and len(cnt) > 0), **wf)

@@ -20,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from webgraph_tpu import native as _native
+from .. import native as _native
 
 from .kdecode import LanePlan, check_diag, decode_chunked
 
