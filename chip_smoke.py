@@ -16,7 +16,8 @@ Phases, each printing one line:
    spills of the two main-path kernels), g++ the port's host library;
 3. kernels: the decode kernel (B1) against ``decode_lanes_plain`` under
    four stream formats and one garbled stream, the compaction kernel (B2)
-   against ``compact_plain`` on random run tables with invalid runs;
+   against ``compact_plain`` on random run tables with invalid runs and on
+   runs of 1-7 arcs at every source alignment;
 4. probes: with launch counts reset just before and read just after,
    every case of every probe module (``cases`` of ``probe``, ``probe2``
    ... ``probe17``: 23 probe sites, every variant) launches its kernel at
@@ -28,7 +29,8 @@ Phases, each printing one line:
    -> device_round with launch counts reset just before and read just
    after; then timings; B1's steps per arc and its slowest lane launched
    alone; a ``torch.profiler`` window over one ``decode_to_csr``; B2's
-   library yardstick (``torch.index_select`` over a prebuilt index); both
+   library yardstick (``torch.index_select`` over a prebuilt index) and a
+   device-to-device ``copy_`` of the same m int32 (``copy_ms``); both
    kernels against their plain versions at the shapes the slice gave them;
    and the CSR bit-exact against the native sequential decoder.
 
@@ -195,6 +197,30 @@ def _decode_vs_plain(plan, errors: Errors, what: str):
     return ms, plain_ms, out["k"]
 
 
+def _compact_vs_plain(dev, errors: Errors, what: str, arcs, gap,
+                      valid) -> dict:
+    """B2 on the card against its plain version on one run table: runs of
+    ``arcs`` arcs, each after ``gap`` store words; valid positions only."""
+    R = len(arcs)
+    arc_start = np.zeros(R + 1, dtype=np.int64)
+    np.cumsum(arcs, out=arc_start[1:])
+    seg = arcs + gap
+    src0 = np.cumsum(seg) - arcs
+    m = int(arc_start[-1])
+    store = torch.randint(-(1 << 31), 1 << 31, (int(seg.sum()),),
+                          dtype=torch.int32, device=dev)
+    cp = kcompact.plan_compact(arc_start, src0, valid, m, device=dev)
+    got = kcompact.compact(cp, store)
+    ms = cuda_ms(lambda: kcompact.compact(cp, store), reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: kcompact.compact_plain(cp, store))
+    exp = kcompact.compact_plain(cp, store)
+    vmask = torch.from_numpy(np.repeat(valid, arcs)).to(dev)
+    errors.check("compact_runs", what, got[vmask], exp[vmask])
+    pairs = len(set(zip((arc_start[:-1] % 4).tolist(), (src0 % 4).tolist())))
+    return dict(setting=what, runs=R, arcs=m, invalid=int((~valid).sum()),
+                alignment_pairs=pairs, ms=ms, plain_ms=plain_ms)
+
+
 def phase_kernels(dev, errors: Errors) -> None:
     co, su = synthesize_webgraph(CHECK_NODES, seed=3)
     n = CHECK_NODES
@@ -226,29 +252,20 @@ def phase_kernels(dev, errors: Errors) -> None:
                              flagged=int((errs != 0).sum()), ms=ms,
                              plain_ms=plain_ms))
 
-    # B2 on random run tables with empty and invalid runs
+    # B2 on random run tables with empty and invalid runs, and on runs of
+    # 1-7 arcs at every source alignment (the 16-byte path meets a run
+    # boundary in nearly every vector)
     rng = np.random.default_rng(7)
     R = 1 << 16
     arcs = rng.integers(0, 600, size=R)
     arcs[rng.random(R) < 0.1] = 0
-    gap = rng.integers(0, 64, size=R)
-    arc_start = np.zeros(R + 1, dtype=np.int64)
-    np.cumsum(arcs, out=arc_start[1:])
-    seg = arcs + gap
-    src0 = np.cumsum(seg) - arcs
-    m = int(arc_start[-1])
-    valid = rng.random(R) >= 0.3
-    store = torch.randint(0, 1 << 30, (int(seg.sum()),), dtype=torch.int32,
-                          device=dev)
-    cp = kcompact.plan_compact(arc_start, src0, valid, m, device=dev)
-    got = kcompact.compact(cp, store)
-    ms = cuda_ms(lambda: kcompact.compact(cp, store), reps=5, warmup=1)
-    plain_ms = cuda_ms(lambda: kcompact.compact_plain(cp, store))
-    exp = kcompact.compact_plain(cp, store)
-    vmask = torch.from_numpy(np.repeat(valid, arcs)).to(dev)
-    errors.check("compact_runs", "random runs", got[vmask], exp[vmask])
-    rows.append(dict(setting="compact_random", runs=R, arcs=m,
-                     invalid=int((~valid).sum()), ms=ms, plain_ms=plain_ms))
+    rows.append(_compact_vs_plain(dev, errors, "compact_random", arcs,
+                                  rng.integers(0, 64, size=R),
+                                  rng.random(R) >= 0.3))
+    short = rng.integers(1, 8, size=R)
+    rows.append(_compact_vs_plain(dev, errors, "compact_short_runs", short,
+                                  rng.integers(0, 4, size=R),
+                                  np.ones(R, bool)))
     emit("kernels", rows)
 
 
@@ -406,10 +423,15 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
     library_ms = min(cuda_ms(lambda: torch.index_select(plan.store, 0,
                                                          src_idx))
                      for _ in range(3))
-    if not torch.equal(torch.index_select(plan.store, 0, src_idx),
-                       kcompact.compact(cp, plan.store)):
+    csr_k = kcompact.compact(cp, plan.store)
+    if not torch.equal(torch.index_select(plan.store, 0, src_idx), csr_k):
         raise AssertionError("index_select differs from compact_runs")
     del src_idx
+    # the card's rate for B2's bytes: a device-to-device copy of m int32
+    # (a reading for context, not B2's library call)
+    dst = torch.empty_like(csr_k)
+    copy_ms = min(cuda_ms(lambda: dst.copy_(csr_k)) for _ in range(3))
+    del dst, csr_k
 
     # ---- both kernels against their plain versions, slice shapes ----
     _, decode_plain_ms, diag = _decode_vs_plain(plan, errors, "slice")
@@ -460,7 +482,8 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
         first_decode_to_csr_s=first_csr_s,
         decode_ms=decode_ms, decode_Medges_per_s=m / decode_ms / 1e3,
         decode_to_csr_s=csr_s, decode_to_csr_Medges_per_s=m / csr_s / 1e6,
-        compact_ms=compact_ms, hyperball_round_s=hb_s, log2m=LOG2M,
+        compact_ms=compact_ms, copy_ms=copy_ms, b2_bytes=b2_bytes,
+        hyperball_round_s=hb_s, log2m=LOG2M,
         fallback_arc_frac=filled / max(m, 1),
         host_decode_s=host_s, host_decode_Medges_per_s=m / host_s / 1e6,
         peak_main_path_bytes=peak_main,

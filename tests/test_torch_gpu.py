@@ -28,6 +28,8 @@ from webgraph_tpu_torch.settings import CompressionFlags as C
 from webgraph_tpu_torch.utils.synth import synthesize_webgraph
 
 from . import torch_edge_cases as E
+from .torch_compact_layouts import LAYOUTS as COMPACT_LAYOUTS
+from .torch_compact_layouts import build_layout
 
 pytestmark = pytest.mark.gpu
 
@@ -159,6 +161,38 @@ def test_compact_kernel_matches_plain(cuda, invalid):
     got = PKC.compact(cp, store)
     exp = PKC.compact_plain(cp, store)
     vmask = torch.from_numpy(np.repeat(valid, arcs)).to(cuda)
+    assert torch.equal(got[vmask], exp[vmask])
+
+
+@pytest.mark.parametrize("layout", sorted(COMPACT_LAYOUTS))
+def test_compact_kernel_edge_layouts(cuda, layout):
+    """The layouts of test_torch_kcompact_host.py on the card: every
+    alignment pair, short and empty runs, a run over several tiles, more
+    runs in a tile than the kernel's slice holds, invalid runs, a run
+    ending at the store's last word.  Valid positions only: the others
+    are unspecified."""
+    cp, store, vmask, *_ = build_layout(layout, device=cuda)
+    before = _build.LAUNCHES["compact_runs"]
+    got = PKC.compact(cp, store)
+    assert _build.LAUNCHES["compact_runs"] == before + 1
+    exp = PKC.compact_plain(cp, store)
+    torch.cuda.synchronize()
+    assert torch.equal(got[vmask], exp[vmask])
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_compact_kernel_store_view_off_16_bytes(cuda, shift):
+    """A store that is a view starting off a 16-byte boundary: the kernel
+    reads it word by word, so any start is taken."""
+    cp, store, vmask, *_ = build_layout("alignments", device=cuda)
+    padded = torch.empty(store.numel() + shift, dtype=torch.int32,
+                         device=cuda)
+    view = padded[shift:]
+    view.copy_(store)
+    assert view.data_ptr() % 16 == 4 * shift
+    got = PKC.compact(cp, view)
+    exp = PKC.compact_plain(cp, store)
+    torch.cuda.synchronize()
     assert torch.equal(got[vmask], exp[vmask])
 
 

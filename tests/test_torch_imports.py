@@ -69,6 +69,7 @@ def test_importing_the_port_loads_no_jax():
         "from webgraph_tpu_torch.algo import hyperball\n"
         "from webgraph_tpu_torch import native, settings\n"
         "from webgraph_tpu_torch.utils import synth\n"
+        "from webgraph_tpu_torch.tools import b1_sweep, b2_sweep\n"
         "import chip_smoke\n"
         "import importlib, pkgutil, webgraph_tpu_torch.experiments as ex\n"
         "mods = [m.name for m in pkgutil.iter_modules(ex.__path__)]\n"

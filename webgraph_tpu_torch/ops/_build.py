@@ -69,6 +69,22 @@ LAUNCHES.update((k, 0) for k in PROBE_SITES)
 
 PTXAS = {}
 _lib = None
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_vp, _i64, _ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# the C entries of csrc/*.cu (and of their variants): argument types; each
+# returns cudaGetLastError
+SIGNATURES = {
+    "wg_bv_decode_lanes": [_vp, _i64, _vp, _i64, _i64, _vp, _vp, _vp]
+    + [_ci] * 8 + [_vp],
+    "wg_compact_runs": [_vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp, _i64, _i64,
+                        _vp],
+    # probe kernels: (variant, ..., stream)
+    "wg_probe_loop": [_ci, _ci, _ci, _vp, _vp, _vp, _i64, _ci, _ci, _vp],
+    "wg_probe_prims": [_ci, _vp, _vp, _vp, _ci, _ci, _vp],
+    "wg_probe_lane": [_ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp],
+    "wg_probe_flush": [_ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp],
+}
 
 
 def reset_launches() -> None:
@@ -120,8 +136,7 @@ def build_kernels() -> str:
                 PTXAS.update(parse_ptxas(f.read()))
         return out
     nvcc = _nvcc()
-    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+    flags = NVCC_FLAGS
     objdir = os.path.join(BUILD_DIR, f"obj-{digest}.tmp{os.getpid()}")
     os.makedirs(objdir, exist_ok=True)
     objs = [os.path.join(objdir, os.path.basename(s) + ".o") for s in srcs]
@@ -168,6 +183,40 @@ def parse_ptxas(log: str) -> dict:
     return res
 
 
+def start_variant(src: str, defs: str, tag: str):
+    """Start nvcc on ``src`` with the comma-separated macros ``defs`` into a
+    shared library of the build dir (keyed by source and macros); returns
+    (process, library path).  :func:`load_variant` waits for it."""
+    with open(src, "rb") as f:
+        key = hashlib.sha256(f.read() + defs.encode()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"{tag}-{key}.so")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-shared",
+         *[f"-D{d}" for d in defs.split(",") if d], src, "-o", out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def load_variant(proc, out: str, what: str):
+    """Wait for :func:`start_variant`'s build; returns (library with its C
+    entries bound, ptxas's report of its kernels)."""
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {what}:\n{log}")
+    return bind(ctypes.CDLL(out)), parse_ptxas(log)
+
+
+def bind(L: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of every C entry ``L`` has."""
+    for name, args in SIGNATURES.items():
+        fn = getattr(L, name, None)
+        if fn is not None:
+            fn.argtypes = args
+            fn.restype = _ci
+    return L
+
+
 def build_native() -> str:
     """g++-build the port's host library for this host (once per source
     hash); returns its path.  ``native`` loads it on first use."""
@@ -183,24 +232,7 @@ def lib() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(build_kernels())
-        vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        L.wg_bv_decode_lanes.argtypes = [vp, i64, vp, i64, i64, vp, vp, vp,
-                                         ci, ci, ci, ci, ci, ci, ci, ci, vp]
-        L.wg_bv_decode_lanes.restype = ci
-        L.wg_compact_runs.argtypes = [vp, vp, i64, vp, vp, vp, vp, i64, i64,
-                                      vp]
-        L.wg_compact_runs.restype = ci
-        # probe kernels: (variant, ..., stream), each returns cudaGetLastError
-        L.wg_probe_loop.argtypes = [ci, ci, ci, vp, vp, vp, i64, ci, ci, vp]
-        L.wg_probe_loop.restype = ci
-        L.wg_probe_prims.argtypes = [ci, vp, vp, vp, ci, ci, vp]
-        L.wg_probe_prims.restype = ci
-        L.wg_probe_lane.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, vp]
-        L.wg_probe_lane.restype = ci
-        L.wg_probe_flush.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, vp]
-        L.wg_probe_flush.restype = ci
-        _lib = L
+        _lib = bind(ctypes.CDLL(build_kernels()))
     return _lib
 
 

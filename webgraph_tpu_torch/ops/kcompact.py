@@ -5,9 +5,12 @@ Counterpart of ``webgraph_tpu/ops/kcompact.py`` (``plan_compact`` ``:163``,
 
     csr[p] = store[src0[r] + p - arc_start[r]]   for p in a valid run r
 
-Positions of invalid runs are not written; the caller splices them (host
-fill of flagged lanes).  The CUDA kernel is ``csrc/compact.cu``;
-``compact_plain`` is its plain PyTorch twin.
+Invalid runs: ``compact`` leaves their positions unspecified (the kernel
+does not write them; a 16-byte output vector that touches one writes only
+its valid positions), and the caller splices them (``ops/csr.py`` fills the
+arcs of flagged lanes on the host).  Every comparison of the kernel with
+``compact_plain`` holds valid positions only.  The CUDA kernel is
+``csrc/compact.cu``; ``compact_plain`` is its plain PyTorch twin.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ import torch
 
 from . import _build
 
-TILE = 4096   # output positions per CUDA block
+TILE = 8192   # output positions per tile: WG_B2_TILE of csrc/compact.cu
 
 
 @dataclasses.dataclass
 class CompactPlan:
-    """Run table on the device plus the per-tile first-run index."""
+    """Run table on the device plus the per-tile run bracket: tile b's
+    positions [b tile, (b + 1) tile) lie in runs tile_run0[b] ..
+    tile_run0[b + 1]."""
 
     arc_start: torch.Tensor   # int64[R+1], ascending, arc_start[R] = m
     src0: torch.Tensor        # int64[R]
@@ -32,16 +37,19 @@ class CompactPlan:
     tile_run0: torch.Tensor   # int64[NB+1]
     m: int
     src_end: int              # max over runs of src0 + length
+    tile: int = TILE          # output positions per tile
 
     @property
     def n_tiles(self) -> int:
         return self.tile_run0.shape[0] - 1
 
 
-def plan_compact(arc_start, src0, valid, m: int, *, device) -> CompactPlan:
+def plan_compact(arc_start, src0, valid, m: int, *, device,
+                 tile: int = TILE) -> CompactPlan:
     """``arc_start``: int64[R+1] CSR position of each run's first arc (last
     = m); ``src0``: int64[R] store position of each run's first arc;
-    ``valid``: bool[R]."""
+    ``valid``: bool[R].  ``tile`` (a multiple of 4) sizes the bracket; the
+    kernel takes ``TILE`` only."""
     arc_start = np.asarray(arc_start, dtype=np.int64)
     R = len(arc_start) - 1
     if R < 1 or arc_start[0] != 0 or arc_start[-1] != m:
@@ -51,8 +59,10 @@ def plan_compact(arc_start, src0, valid, m: int, *, device) -> CompactPlan:
     src0 = np.asarray(src0, dtype=np.int64)
     if len(src0) != R or (src0 < 0).any():
         raise ValueError("src0 must hold R store positions >= 0")
-    nb = -(-m // TILE)
-    t = np.minimum(np.arange(nb + 1, dtype=np.int64) * TILE, max(m - 1, 0))
+    if tile <= 0 or tile % 4:
+        raise ValueError("tile must be a positive multiple of 4")
+    nb = -(-m // tile)
+    t = np.minimum(np.arange(nb + 1, dtype=np.int64) * tile, max(m - 1, 0))
     run0 = np.clip(np.searchsorted(arc_start[:-1], t, side="right") - 1,
                    0, R - 1)
     run0[-1] = R - 1
@@ -61,7 +71,7 @@ def plan_compact(arc_start, src0, valid, m: int, *, device) -> CompactPlan:
         src0=torch.from_numpy(src0).to(device),
         valid=torch.from_numpy(np.asarray(valid, dtype=np.uint8)).to(device),
         tile_run0=torch.from_numpy(run0).to(device), m=int(m),
-        src_end=int((src0 + np.diff(arc_start)).max()))
+        src_end=int((src0 + np.diff(arc_start)).max()), tile=int(tile))
 
 
 def compact(cp: CompactPlan, store: torch.Tensor) -> torch.Tensor:
@@ -84,11 +94,15 @@ def compact(cp: CompactPlan, store: torch.Tensor) -> torch.Tensor:
         return compact_plain(cp, store)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if cp.tile != TILE:
+        raise ValueError(f"the kernel takes tiles of {TILE}, the plan has "
+                         f"{cp.tile}")
     csr = torch.empty(cp.m, dtype=torch.int32, device=dev)
     rc = _build.lib().wg_compact_runs(
-        store.data_ptr(), csr.data_ptr(), cp.m, cp.arc_start.data_ptr(),
-        cp.src0.data_ptr(), cp.valid.data_ptr(), cp.tile_run0.data_ptr(),
-        cp.n_tiles, TILE, _build.stream_ptr(store))
+        store.data_ptr(), store.numel(), csr.data_ptr(), cp.m,
+        cp.arc_start.data_ptr(), cp.src0.data_ptr(), cp.valid.data_ptr(),
+        cp.tile_run0.data_ptr(), cp.n_tiles, cp.tile,
+        _build.stream_ptr(store))
     _build.check(rc, "compact_runs")
     _build.LAUNCHES["compact_runs"] += 1
     return csr

@@ -20,8 +20,6 @@ One JSON line per variant, then the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -42,23 +40,8 @@ DEFAULT_VARIANTS = ("WG_B1_THREADS=128", "WG_B1_THREADS=64",
 def build_variant(src: str, defs: str):
     """nvcc ``src`` with the macros ``defs`` into the build dir; returns
     (library, ptxas report of its kernel)."""
-    flags = [f"-D{d}" for d in defs.split(",") if d]
-    with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + defs.encode()).hexdigest()[:16]
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_build.BUILD_DIR, f"b1sweep-{key}.so")
-    proc = subprocess.run(
-        [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-         "-shared", *flags, src, "-o", out], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {src} {defs}:\n{proc.stderr}")
-    lib = ctypes.CDLL(out)
-    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.wg_bv_decode_lanes.argtypes = [vp, i64, vp, i64, i64, vp, vp, vp,
-                                       ci, ci, ci, ci, ci, ci, ci, ci, vp]
-    lib.wg_bv_decode_lanes.restype = ci
-    rep = _build.parse_ptxas(proc.stdout + proc.stderr)
+    lib, rep = _build.load_variant(*_build.start_variant(src, defs, "b1sweep"),
+                                   f"{src} {defs}")
     return lib, next(iter(rep.values()), {})
 
 
