@@ -2,11 +2,13 @@
 """Smoke run of the PyTorch / CUDA port (``webgraph_tpu_torch``) on one GPU.
 
 Drives the port's main path -- a cold BVGraph decode planned from the
-stream and its offsets alone, into a device-resident CSR, then one
-HyperBall round over it -- at uk-2002 scale (18.5M nodes, ~355M arcs of a
-synthetic web graph), after holding both hand-written CUDA kernels against
-their plain PyTorch versions on the card; and the probe path -- every probe
-of the JAX package's ``experiments/`` ported to a CUDA kernel in
+stream and its offsets alone, into a device-resident CSR, then the
+analytics over it (HyperBall to convergence, BFS, connected and strongly
+connected components, geometric centrality, statistics) -- at uk-2002
+scale (18.5M nodes, ~355M arcs of a synthetic web graph), after holding
+both hand-written CUDA kernels against their plain PyTorch versions on the
+card; and the probe path -- every probe of the JAX package's
+``experiments/`` ported to a CUDA kernel in
 ``webgraph_tpu_torch/experiments/`` -- at the probes' own shapes.
 
 Phases, each printing one line:
@@ -26,17 +28,33 @@ Phases, each printing one line:
    at the full count would take too long; the line says which);
 5. slice: the synthetic graph is generated and encoded (cached in
    ``.bench_synth_<N>.npz``), then plan -> resolve_halos -> decode_to_csr
-   -> device_round with launch counts reset just before and read just
-   after; then timings; B1's steps per arc and its slowest lane launched
-   alone; a ``torch.profiler`` window over one ``decode_to_csr``; B2's
-   library yardstick (``torch.index_select`` over a prebuilt index) and a
-   device-to-device ``copy_`` of the same m int32 (``copy_ms``); both
-   kernels against their plain versions at the shapes the slice gave them;
-   and the CSR bit-exact against the native sequential decoder.
+   -> ``CSRGraph.from_decoded`` -> device_round with launch counts reset
+   just before and read just after; then timings; B1's steps per arc and
+   its slowest lane launched alone; a ``torch.profiler`` window over one
+   ``decode_to_csr``; B2's library yardstick (``torch.index_select`` over
+   a prebuilt index) and a device-to-device ``copy_`` of the same m int32
+   (``copy_ms``); both kernels against their plain versions at the shapes
+   the slice gave them; and the CSR bit-exact against the native
+   sequential decoder;
+6. analytics: on the slice's device CSR (the plan freed), each step timed
+   alone (host clock + synchronise, peak device bytes) and then checked
+   against something independent of the code under test: stats against
+   numpy bincounts of the native decode's CSR; the transpose's offsets and
+   2,000 sampled predecessor lists; HyperBall at log2m 6 with the
+   transpose, to convergence, every round's registers of 2,000 sampled
+   nodes against a host merge of the previous round's rows (round 2 under
+   the profiler); BFS from node 0 held to a distance certificate; CC of
+   the symmetrized graph against scipy's weak components; SCC and its
+   buckets against scipy's strong components; harmonic centrality of 32
+   seeded sources on the packed path, 4 of them against sums over
+   certified BFS distances; and the dense, systolic/local and external
+   HyperBall modes on the 20,000-node check graph, register- and
+   NF-equal.  The analytics launch no hand-written kernel (torch ops
+   only): the line reads the counts, reset just before.
 
 Then one JSON line of the kernels (both main-path kernels and the 23 probe
-sites, each with its launches, times, bound and library time), one of the
-slice's numbers, and last ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
+sites, each with its launches, times, bound and library time), and last
+``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without a CUDA device it fails before doing anything.
 
 Usage: ``python3 chip_smoke.py``; it needs one CUDA device.
@@ -61,11 +79,16 @@ from webgraph_tpu_torch import native, require_cuda  # noqa: E402
 from webgraph_tpu_torch.settings import BVGraphSettings  # noqa: E402
 from webgraph_tpu_torch.settings import CompressionFlags as C  # noqa: E402
 from webgraph_tpu_torch.utils.synth import synthesize_webgraph  # noqa: E402
+from webgraph_tpu_torch import algo as A  # noqa: E402
+from webgraph_tpu_torch import transform as TR  # noqa: E402
+from webgraph_tpu_torch.algo import centrality as CE  # noqa: E402
 from webgraph_tpu_torch.algo import hyperball as HB  # noqa: E402
+from webgraph_tpu_torch.core.graph import CSRGraph, expand_ranges  # noqa
+from webgraph_tpu_torch.utils.stats import compute_stats  # noqa: E402
 from webgraph_tpu_torch.experiments import common as PC  # noqa: E402
 from webgraph_tpu_torch.ops import _build, kcompact, kdecode, kplan  # noqa
 from webgraph_tpu_torch.ops.csr import decode_to_csr  # noqa: E402
-from webgraph_tpu_torch.ops.resolve import _expand, resolve_halos  # noqa
+from webgraph_tpu_torch.ops.resolve import resolve_halos  # noqa: E402
 
 KERNELS = {
     "bv_decode_lanes": dict(source="webgraph_tpu_torch/csrc/bv_decode.cu",
@@ -94,6 +117,13 @@ CHECK_SETTINGS = {
     "gamma_res": BVGraphSettings(residual_coding=C.GAMMA),
 }
 LOG2M = 4
+# the analytics phase: HyperBall at the JAX class's default log2m
+# (webgraph_tpu/algo/hyperball.py:368); nodes whose lists or registers are
+# checked on the host; centrality sources, and how many are held to a BFS
+HB_LOG2M = 6
+SAMPLE = 2000
+CENTRALITY_SOURCES = 32
+CENTRALITY_CHECKED = 4
 
 
 def emit(tag: str, obj) -> None:
@@ -344,7 +374,9 @@ def synth_input(n_nodes: int):
     return data, offsets, n, m, settings, src, time.perf_counter() - t0
 
 
-def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
+def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
+    """The main path at ``n_nodes``.  Returns (the device CSR graph and the
+    native decode's host CSR, for the analytics; the slice's numbers)."""
     data, offsets, n, m, settings, src, input_s = synth_input(n_nodes)
     torch.cuda.reset_peak_memory_stats()
 
@@ -366,8 +398,9 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
     co, succ, filled = decode_to_csr(plan)
     torch.cuda.synchronize()
     first_csr_s = time.perf_counter() - t0
+    g = CSRGraph.from_decoded(co, succ)
     regs0 = torch.from_numpy(HB.hyperloglog_init(n, LOG2M, seed=1)).to(dev)
-    regs1 = HB.device_round(co, succ, regs0)
+    regs1 = HB.device_round(g.offsets, g.succ, regs0, src=g.arc_sources())
     torch.cuda.synchronize()
     launches = {k: _build.LAUNCHES[k] for k in KERNELS}
     peak_main = torch.cuda.max_memory_allocated()
@@ -380,16 +413,17 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
                     for _ in range(3))
     csr_times = []
     for _ in range(3):
-        succ = None
+        again = None
         t0 = time.perf_counter()
-        _, succ, _ = decode_to_csr(plan)
+        _, again, _ = decode_to_csr(plan)
         torch.cuda.synchronize()
         csr_times.append(time.perf_counter() - t0)
     csr_s = min(csr_times)
+    del again, succ
     hb_times = []
     for _ in range(2):
         t0 = time.perf_counter()
-        r = HB.device_round(co, succ, regs0)
+        r = HB.device_round(g.offsets, g.succ, regs0, src=g.arc_sources())
         torch.cuda.synchronize()
         hb_times.append(time.perf_counter() - t0)
         del r
@@ -410,7 +444,8 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
               slowest_lane=slow, slowest_lane_steps=int(lane_steps[slow]),
               slowest_lane_arcs=int(lane_arcs[slow]),
               slowest_lane_alone_ms=alone_ms)
-    profile = profile_decode_to_csr(plan)
+    decode_to_csr(plan)   # one call unprofiled, then one under the profiler
+    profile = profile_window(lambda: decode_to_csr(plan))
     b1_bytes = (plan.words.numel() * 4 + plan.meta.numel() * 8
                 + 4 * (int(plan.halo_arcs.sum()) + m)
                 + 4 * kdecode.DIAG_ROWS * plan.lanes)
@@ -419,7 +454,7 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
         cp.arc_start, cp.src0, cp.valid, cp.tile_run0))
     # one library call for B2's function: a gather over a source index
     # built once, outside the timing
-    src_idx = _expand(cp.src0, cp.arc_start[1:] - cp.arc_start[:-1], dev)
+    src_idx = expand_ranges(cp.src0, cp.arc_start[1:] - cp.arc_start[:-1], dev)
     library_ms = min(cuda_ms(lambda: torch.index_select(plan.store, 0,
                                                          src_idx))
                      for _ in range(3))
@@ -451,7 +486,7 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
         raise AssertionError("lanes flagged on a clean stream")
     if not np.array_equal(co, hco):
         raise AssertionError("CSR offsets differ from the native decode")
-    succ_h = succ.cpu().numpy()
+    succ_h = g.succ.cpu().numpy()
     if not np.array_equal(succ_h, hsu):
         bad = np.flatnonzero(succ_h != hsu)
         raise AssertionError(f"CSR differs from the native decode at "
@@ -472,8 +507,9 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
     est = HB.estimate_counts(r1[:100000])
     if not np.isfinite(est).all():
         raise AssertionError("non-finite HyperBall estimates")
+    del regs0, regs1, r0, r1, succ_h
 
-    return dict(
+    return dict(graph=g, hco=hco, hsu=hsu), dict(
         input=src, nodes=n, arcs=m, input_s=input_s,
         lanes=plan.lanes, longest_lane_arcs=int(lane_arcs.max()),
         halo_arcs=int(plan.halo_arcs.sum()), store_elems=int(
@@ -496,37 +532,308 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> dict:
         bit_exact=True)
 
 
-def profile_decode_to_csr(plan) -> dict:
-    """One ``decode_to_csr`` under ``torch.profiler``: wall time, the
-    device's busy time (kernels and copies) and its share, and the device
-    time of the largest entries."""
+class Steps:
+    """Per analytics step: seconds on the host clock ending in a
+    synchronise, the peak device bytes while it ran, and its summary."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def run(self, name: str, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.rows[name] = dict(seconds=time.perf_counter() - t0,
+                               peak_bytes=torch.cuda.max_memory_allocated())
+        return out
+
+    def note(self, name: str, **summary) -> None:
+        self.rows[name].update(summary)
+
+
+def arc_sources(g) -> torch.Tensor:
+    """The source of every arc, int64, built here rather than by the
+    graph class under test."""
+    return torch.repeat_interleave(
+        torch.arange(g.num_nodes, device=g.device),
+        g.offsets[1:] - g.offsets[:-1], output_size=g.num_arcs)
+
+
+def check_bfs(g, src: torch.Tensor, root: int, dist: torch.Tensor) -> None:
+    """A certificate of BFS distances from ``root``, in torch ops on the
+    device: every arc (u, v) with u reached has v reached and dist[v] <=
+    dist[u] + 1 (so dist is at most the distance, and no unreached node has
+    a reached predecessor); every reached v but the root has a predecessor
+    at dist[v] - 1 (so dist is at least the distance)."""
+    tgt = g.succ.to(torch.int64)
+    du, dv = dist[src], dist[tgt]
+    ru = du >= 0
+    if int(dist[root]) != 0:
+        raise AssertionError("BFS: the root is not at distance 0")
+    if bool((ru & (dv < 0)).any()):
+        raise AssertionError("BFS: an unreached node has a reached "
+                             "predecessor")
+    if bool((ru & (dv > du + 1)).any()):
+        raise AssertionError("BFS: an arc would shorten a distance")
+    has = torch.zeros(g.num_nodes, dtype=torch.bool, device=g.device)
+    has[tgt[ru & (du == dv - 1)]] = True
+    has[root] = True
+    if bool(((dist >= 0) & ~has).any()):
+        raise AssertionError("BFS: a reached node has no predecessor one "
+                             "level up")
+
+
+def phase_analytics(dev, graph, hco, hsu) -> dict:
+    """The analytics on the slice's device CSR, each step timed alone and
+    then checked against something independent of the code under test:
+    the native decode's host CSR (``hco``, ``hsu``), scipy, or a
+    certificate computed here."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    g = graph
+    n, m = g.num_nodes, g.num_arcs
+    steps = Steps()
+    rng = np.random.default_rng(5)
+    t_start = time.perf_counter()
+    _build.reset_launches()
+
+    # 1. Stats against numpy bincounts of the host CSR
+    st = steps.run("stats", lambda: compute_stats(g))
+    outd = np.diff(hco)
+    indeg = np.bincount(hsu, minlength=n)
+    src_h = np.repeat(np.arange(n, dtype=np.int64), outd)
+    want = dict(nodes=n, arcs=m, loops=int(np.count_nonzero(src_h == hsu)),
+                maxoutdegree=int(outd.max()), maxindegree=int(indeg.max()),
+                dangling=int((outd == 0).sum()),
+                terminal=int((indeg == 0).sum()))
+    for k, v in want.items():
+        if st[k] != v:
+            raise AssertionError(f"stats: {k} {st[k]} != {v}")
+    for key, h in (("outdegree_distribution", np.bincount(outd)),
+                   ("indegree_distribution", np.bincount(indeg))):
+        if not np.array_equal(st[key].cpu().numpy(), h):
+            raise AssertionError(f"stats: {key} differs")
+    steps.note("stats", **want, avgoutdegree=st["avgoutdegree"])
+
+    # 2. Transpose: offsets from the indegrees, sampled predecessor lists
+    gt = steps.run("transpose", lambda: TR.transpose(g))
+    want_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(indeg, out=want_off[1:])
+    go, gsu = gt.offsets.cpu().numpy(), gt.succ.cpu().numpy()
+    if not np.array_equal(go, want_off):
+        raise AssertionError("transpose: offsets differ from the indegrees")
+    xs = np.sort(rng.choice(n, SAMPLE, replace=False))
+    lut = np.zeros(n, dtype=bool)
+    lut[xs] = True
+    sel = np.flatnonzero(lut[hsu])
+    preds = src_h[sel][np.lexsort((src_h[sel], hsu[sel]))]
+    got = np.concatenate([gsu[go[x]:go[x + 1]] for x in xs])
+    if not np.array_equal(got, preds):
+        raise AssertionError("transpose: sampled predecessor lists differ")
+    del go, gsu, lut, sel, preds, got
+    steps.note("transpose", sampled_nodes=SAMPLE)
+
+    # 3. HyperBall to convergence; every round, sampled registers against
+    #    a merge of the previous round's rows on the host
+    hb = steps.run("hyperball_init", lambda: A.HyperBall(
+        g, log2m=HB_LOG2M, seed=1, gt=gt, do_sum_of_distances=True,
+        do_sum_of_inverse_distances=True))
+    xs = np.sort(rng.choice(n, SAMPLE, replace=False))
+    lists = [hsu[hco[x]:hco[x + 1]] for x in xs]
+    need = np.unique(np.concatenate([xs] + lists))
+    need_t, xs_t = (torch.from_numpy(a).to(dev) for a in (need, xs))
+    at_x = np.searchsorted(need, xs)
+    at_succ = [np.searchsorted(need, ys) for ys in lists]
+    round_s, round_profile = [], None
+    torch.cuda.reset_peak_memory_stats()
+    while True:
+        prev = hb.regs[need_t].cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if hb.iteration == 1:   # round 2, dense, under the profiler
+            round_profile = profile_window(hb.iterate)
+        else:
+            hb.iterate()
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        cur = hb.regs[xs_t].cpu().numpy()
+        for i, x in enumerate(xs):
+            w = prev[at_x[i]]
+            if len(at_succ[i]):
+                w = np.maximum(w, prev[at_succ[i]].max(axis=0))
+            if not np.array_equal(cur[i], w):
+                raise AssertionError(f"HyperBall round {hb.iteration}: "
+                                     f"registers of node {x} differ")
+        if hb.modified == 0:
+            break
+    nf = hb.neighbourhood_function
+    sums = (hb.sum_of_distances, hb.sum_of_inverse_distances)
+    if not (np.isfinite(nf).all()
+            and all(bool(torch.isfinite(s).all() & (s >= 0).all())
+                    for s in sums)):
+        raise AssertionError("HyperBall: non-finite or negative results")
+    steps.rows["hyperball"] = dict(
+        seconds=sum(round_s), peak_bytes=torch.cuda.max_memory_allocated(),
+        log2m=HB_LOG2M, rounds=hb.iteration, round_s=round_s,
+        mode_history=hb.mode_history, arcs_touched=hb.arcs_touched,
+        nf=nf, effective_diameter=A.effective_diameter(nf, 0.9),
+        sampled_nodes=SAMPLE, round2_profile=round_profile)
+    del hb, sums, prev, cur
+
+    # 4. BFS from node 0, held to a certificate
+    src = arc_sources(g)
+    dist, rounds = steps.run("bfs", lambda: A.bfs(g, [0]))
+    check_bfs(g, src, 0, dist)
+    steps.note("bfs", rounds=rounds, reached=int((dist >= 0).sum()),
+               max_dist=int(dist.max()))
+    del dist
+
+    # 5. CC of the symmetrized graph: constant across arcs, scipy's count,
+    #    ids in first-appearance order
+    gs = steps.run("symmetrize", lambda: TR.symmetrize(g))
+    steps.note("symmetrize", arcs=gs.num_arcs)
+    comp = steps.run("cc", lambda: A.connected_components(gs))
+    del gs
+    k = int(comp.max()) + 1
+    if bool((comp[src] != comp[g.succ.to(torch.int64)]).any()):
+        raise AssertionError("CC: a label changes across an arc")
+    first = torch.full((k,), n, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, comp, torch.arange(n, device=dev), "amin")
+    if int(first[0]) != 0 or not bool((first[1:] > first[:-1]).all()):
+        raise AssertionError("CC: ids not in first-appearance order")
+    mat = csr_matrix((np.ones(m), hsu, hco), shape=(n, n))
+    kw, _ = connected_components(mat, directed=True, connection="weak")
+    if kw != k:
+        raise AssertionError(f"CC: {k} components, scipy {kw}")
+    steps.note("cc", components=k, largest=int(torch.bincount(comp).max()))
+    del comp, first
+
+    # 6. SCC and buckets against scipy's strong components
+    info = {}
+    k, scc = steps.run("scc", lambda: A.strongly_connected_components(
+        g, stats=info))
+    buckets = steps.run("scc_buckets", lambda: A.scc_buckets(g, scc))
+    ks, lab = connected_components(mat, directed=True, connection="strong")
+    del mat
+    scc_h = scc.cpu().numpy()
+    if ks != k or np.unique(scc_h * ks + lab).size != k:
+        raise AssertionError(f"SCC: {k} components, scipy {ks}, or another "
+                             f"partition")
+    ls, lt = lab[src_h], lab[hsu]
+    leaves = np.zeros(ks, dtype=bool)
+    leaves[ls[ls != lt]] = True
+    looped = np.zeros(ks, dtype=bool)
+    looped[lab[src_h[src_h == hsu]]] = True
+    want_b = ~leaves & ((np.bincount(lab, minlength=ks) > 1) | looped)
+    to_s = np.empty(k, dtype=np.int64)
+    to_s[scc_h] = lab
+    if not np.array_equal(buckets.cpu().numpy(), want_b[to_s]):
+        raise AssertionError("SCC: buckets differ from scipy's components")
+    steps.note("scc", components=k, largest=int(np.bincount(scc_h).max()),
+               **info)
+    steps.note("scc_buckets", buckets=int(buckets.sum()))
+    del scc, buckets, scc_h, ls, lt, lab, src_h
+
+    # 7. Harmonic centrality of seeded sources on the packed path; some
+    #    against sums of 1/d over certificate-checked BFS distances
+    sources = np.sort(rng.choice(n, CENTRALITY_SOURCES, replace=False))
+    if CENTRALITY_SOURCES * n <= CE.DENSE_LIMIT:
+        raise AssertionError("centrality would not take the packed path")
+    hc = steps.run("centrality", lambda: A.harmonic_centrality(
+        g, sources=torch.from_numpy(sources).to(dev),
+        batch=CENTRALITY_SOURCES)).cpu().numpy()
+    for i in range(CENTRALITY_CHECKED):
+        d, _ = A.bfs(g, [int(sources[i])])
+        check_bfs(g, src, int(sources[i]), d)
+        cnt = torch.bincount(d[d > 0]).cpu().numpy()
+        want_h = 0.0
+        for level in range(1, len(cnt)):
+            want_h += (1.0 / level) * cnt[level]
+        if not np.isclose(hc[i], want_h, rtol=1e-12, atol=0):
+            raise AssertionError(f"centrality of {sources[i]}: {hc[i]} != "
+                                 f"{want_h}")
+    # where the packed path's time goes: its arc setup and one level
+    level_profile = profile_window(lambda: A.harmonic_centrality(
+        g, sources=torch.from_numpy(sources).to(dev),
+        batch=CENTRALITY_SOURCES, max_dist=1))
+    steps.note("centrality", sources=CENTRALITY_SOURCES, packed=True,
+               checked=CENTRALITY_CHECKED, values=hc.tolist(),
+               one_level_profile=level_profile)
+    del src, d
+
+    # 8. The HyperBall modes on the 20,000-node check graph: the same
+    #    registers and the same neighbourhood function
+    co, su = synthesize_webgraph(CHECK_NODES, seed=3)
+    sg = CSRGraph(co, su, device=dev)
+    sgt = TR.transpose(sg)
+    runs = {}
+    t0 = time.perf_counter()
+    for name, opts in (("dense", {}), ("systolic_local", dict(gt=sgt)),
+                     ("external", dict(gt=sgt, external_chunk=1 << 16))):
+        runs[name] = A.HyperBall(sg, log2m=HB_LOG2M, seed=2, **opts)
+        runs[name].run()
+    torch.cuda.synchronize()
+    regs = {k: np.asarray(h.regs.cpu() if isinstance(h.regs, torch.Tensor)
+                          else h.regs) for k, h in runs.items()}
+    for k, h in runs.items():
+        if not np.array_equal(regs[k], regs["dense"]):
+            raise AssertionError(f"HyperBall {k}: registers differ")
+        if h.neighbourhood_function != runs["dense"].neighbourhood_function:
+            raise AssertionError(f"HyperBall {k}: the NF differs")
+    steps.rows["modes_small"] = dict(
+        seconds=time.perf_counter() - t0, nodes=CHECK_NODES, arcs=sg.num_arcs,
+        modes={k: h.mode_history for k, h in runs.items()})
+
+    launches = {k: _build.LAUNCHES[k] for k in KERNELS}
+    r = steps.rows
+    return dict(
+        nodes=n, arcs=m, seconds=time.perf_counter() - t_start,
+        hyperball_run_s=r["hyperball_init"]["seconds"]
+        + r["hyperball"]["seconds"],
+        rounds=r["hyperball"]["rounds"],
+        s_per_round=r["hyperball"]["seconds"] / r["hyperball"]["rounds"],
+        bfs_s=r["bfs"]["seconds"], cc_s=r["cc"]["seconds"],
+        scc_s=r["scc"]["seconds"], centrality_s=r["centrality"]["seconds"],
+        peak_bytes=max(v.get("peak_bytes", 0) for v in r.values()),
+        launches=launches, steps=r)
+
+
+def profile_window(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: wall time, the device's busy
+    time (kernels and copies) and its share, and the device time of the
+    largest kernels and of the operators that launched them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    decode_to_csr(plan)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode_to_csr(plan)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    kernels, ops = [], []
     for e in prof.key_averages():
-        # device activities only (kernels, copies, sets): a CPU operator's
-        # own entry repeats the device time of what it launched
-        if e.device_type != DeviceType.CUDA:
-            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((e.key[:60], us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+        if us <= 0:
+            continue
+        # a device activity (kernel, copy, set), or the operator that
+        # launched it: the two lists split the same device time two ways
+        rows = kernels if e.device_type == DeviceType.CUDA else ops
+        rows.append((e.key[:60], us / 1e3, e.count))
+    for rows in (kernels, ops):
+        rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in kernels)
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 device_idle_share=max(0.0, 1 - busy / wall_ms),
                 top=[dict(name=k, device_ms=v, count=c)
-                     for k, v, c in rows[:8]])
+                     for k, v, c in kernels[:8]],
+                ops=[dict(name=k, device_ms=v, count=c)
+                     for k, v, c in ops[:10]])
 
 
 def main() -> int:
@@ -538,8 +845,11 @@ def main() -> int:
     t0 = time.perf_counter()
     probes = phase_probes(dev, errors)
     probes_s = time.perf_counter() - t0
-    res = phase_slice(dev, errors, SLICE_NODES)
+    ctx, res = phase_slice(dev, errors, SLICE_NODES)
     emit("slice", res)
+    torch.cuda.empty_cache()
+    emit("analytics", phase_analytics(dev, **ctx))
+    del ctx
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),
              "compact_runs": (res["compact_ms"], res["compact_plain_ms"])}
     kernels = [dict(name=k, route="cuda", source=v["source"],

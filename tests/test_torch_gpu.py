@@ -212,3 +212,123 @@ def test_cold_slice_on_card(cuda):
     got = PHB.device_round(pco, succ, regs.to(cuda)).cpu()
     exp = PHB.device_round(pco, succ.cpu(), regs)
     assert torch.equal(got, exp)
+
+
+# -- the analytics on the card against the port on the CPU ------------------
+
+
+def _analytics_graphs(cuda):
+    """One small synthetic web graph (distinct successors below n,
+    ascending) on the CPU and on the card."""
+    from webgraph_tpu_torch.core.graph import CSRGraph
+    n = 3000
+    co, su = synthesize_webgraph(n, seed=5)
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(co))
+    key = np.unique((rows * n + su)[su < n])
+    co = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(key // n, minlength=n), out=co[1:])
+    return (CSRGraph(co, key % n, device="cpu"),
+            CSRGraph(co, key % n, device=cuda))
+
+
+def _same(a, b):
+    """Exact for integers and booleans, rtol 1e-12 for floats."""
+    if isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, torch.Tensor):
+        assert b.device.type == "cuda" and a.dtype == b.dtype
+        if a.dtype.is_floating_point:
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
+                                       rtol=1e-12, atol=0)
+        else:
+            assert torch.equal(b.cpu(), a)
+    elif isinstance(a, float):
+        np.testing.assert_allclose(b, a, rtol=1e-12, atol=0)
+    else:
+        assert a == b
+
+
+def _graph_pair(g):
+    return g.offsets, g.succ
+
+
+ANALYTICS = {
+    "transpose": lambda A, T, g: _graph_pair(T.transpose(g)),
+    "symmetrize": lambda A, T, g: _graph_pair(T.symmetrize(g)),
+    "simplify": lambda A, T, g: _graph_pair(T.simplify(g)),
+    "union": lambda A, T, g: _graph_pair(T.union(g, T.transpose(g))),
+    "bfs": lambda A, T, g: A.bfs(g, [0, 7]),
+    "visit": lambda A, T, g: A.visit(g, 11),
+    "cc": lambda A, T, g: A.sort_by_size(A.connected_components(
+        T.symmetrize(g))),
+    "scc": lambda A, T, g: (lambda kc: (kc, A.scc_buckets(g, kc[1])))(
+        A.strongly_connected_components(g)),
+    "harmonic": lambda A, T, g: A.harmonic_centrality(g, batch=128),
+    "closeness": lambda A, T, g: A.closeness_centrality(
+        g, sources=torch.arange(0, 3000, 7, device=g.device), batch=64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ANALYTICS))
+def test_analytics_on_card_match_cpu(cuda, name):
+    from webgraph_tpu_torch import algo as A
+    from webgraph_tpu_torch import transform as T
+    gc, gg = _analytics_graphs(cuda)
+    _same(ANALYTICS[name](A, T, gc), ANALYTICS[name](A, T, gg))
+
+
+def test_packed_centrality_on_card_matches_cpu(cuda, monkeypatch):
+    from webgraph_tpu_torch import algo as A
+    from webgraph_tpu_torch.algo import centrality as CE
+    monkeypatch.setattr(CE, "DENSE_LIMIT", 1)
+    monkeypatch.setattr(CE, "PACKED_CHUNK", 997)
+    gc, gg = _analytics_graphs(cuda)
+    src = np.arange(0, 3000, 13)
+    _same(A.harmonic_centrality(gc, sources=src, batch=96),
+          A.harmonic_centrality(gg, sources=src, batch=96))
+
+
+def test_stats_on_card_match_cpu(cuda):
+    from webgraph_tpu_torch import algo as A
+    from webgraph_tpu_torch.utils.stats import compute_stats
+    gc, gg = _analytics_graphs(cuda)
+    sc = compute_stats(gc, A.strongly_connected_components(gc)[1])
+    sg = compute_stats(gg, A.strongly_connected_components(gg)[1])
+    assert list(sc) == list(sg)
+    for k in sc:
+        _same(sc[k], sg[k])
+
+
+@pytest.mark.parametrize("mode", ["dense", "sparse", "external"])
+def test_hyperball_on_card_matches_cpu(cuda, mode, tmp_path):
+    from webgraph_tpu_torch import algo as A
+    from webgraph_tpu_torch import transform as T
+    gc, gg = _analytics_graphs(cuda)
+    runs = []
+    for g in (gc, gg):
+        kw = dict(log2m=6, seed=3, do_sum_of_distances=True,
+                  do_sum_of_inverse_distances=True)
+        if mode != "dense":
+            kw["gt"] = T.transpose(g)
+        if mode == "external":
+            kw.update(external_chunk=5000,
+                      regs_path=str(tmp_path / f"{g.device.type}.npy"))
+        hb = A.HyperBall(g, **kw)
+        hb.run()
+        runs.append(hb)
+    c, k = runs
+    if mode == "external":
+        np.testing.assert_array_equal(np.asarray(k.regs), np.asarray(c.regs))
+    else:
+        assert k.regs.is_cuda and torch.equal(k.regs.cpu(), c.regs)
+    assert (k.mode_history, k.arcs_touched, k.modified, k.iteration) == (
+        c.mode_history, c.arcs_touched, c.modified, c.iteration)
+    _same(c.neighbourhood_function, k.neighbourhood_function)
+    _same([c.sum_of_distances, c.sum_of_inverse_distances,
+           c.reachable_counts()],
+          [k.sum_of_distances, k.sum_of_inverse_distances,
+           k.reachable_counts()])
+    if mode == "sparse":
+        assert "systolic" in k.mode_history or "local" in k.mode_history

@@ -66,7 +66,11 @@ def test_importing_the_port_loads_no_jax():
         "import webgraph_tpu_torch, webgraph_tpu_torch.state\n"
         "from webgraph_tpu_torch.ops import (_build, bitstream, csr, "
         "kcompact, kdecode, kplan, resolve)\n"
-        "from webgraph_tpu_torch.algo import hyperball\n"
+        "from webgraph_tpu_torch.algo import (bfs, cc, centrality, "
+        "hyperball, scc)\n"
+        "from webgraph_tpu_torch import algo, transform\n"
+        "from webgraph_tpu_torch.core import graph\n"
+        "from webgraph_tpu_torch.utils import stats\n"
         "from webgraph_tpu_torch import native, settings\n"
         "from webgraph_tpu_torch.utils import synth\n"
         "from webgraph_tpu_torch.tools import b1_sweep, b2_sweep\n"

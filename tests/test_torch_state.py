@@ -40,7 +40,9 @@ def test_csr_from_numpy():
     co = np.asarray([0, 2, 2, 5])
     su = np.asarray([1, 2, 0, 1, 2])
     csr = state.csr_from_numpy(co, su, CPU)
-    assert csr.offsets.dtype == np.int64 and csr.succ.dtype == torch.int32
+    assert csr.offsets.dtype == torch.int64 and csr.succ.dtype == torch.int32
+    assert csr.num_nodes == 3 and csr.device == CPU
+    np.testing.assert_array_equal(csr.offsets.numpy(), co)
     np.testing.assert_array_equal(csr.succ.numpy(), su)
     with pytest.raises(ValueError):
         state.csr_from_numpy(np.asarray([0, 2, 4]), su, CPU)

@@ -19,10 +19,11 @@ import numpy as np
 import torch
 
 from .. import native as _native
+from ..core.graph import expand_ranges
 
 from .kcompact import compact, plan_compact
 from .kdecode import LanePlan, decode_chunked, lanes_flagged
-from .resolve import _expand, resolve_halos
+from .resolve import resolve_halos
 
 
 def plan_csr_index(plan: LanePlan) -> None:
@@ -69,7 +70,7 @@ def fill_lanes(plan: LanePlan, lanes_mask: np.ndarray):
     _native.bv_fill_ranges(dpad, settings, p + nb, s + nb, e + nb,
                            plan.offsets[p], init, dst, arcs, vals,
                            threads=os.cpu_count() or 1, padded=True)
-    pos = _expand(cum[s] - plan.arc_base, arcs, "cpu").numpy()
+    pos = expand_ranges(cum[s] - plan.arc_base, arcs, "cpu").numpy()
     return pos, vals[:len(pos)]
 
 

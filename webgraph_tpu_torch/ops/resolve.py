@@ -21,21 +21,9 @@ import numpy as np
 import torch
 
 from .. import native as _native
+from ..core.graph import expand_ranges
 
 from .kdecode import LanePlan, check_diag, decode_chunked
-
-
-def _expand(first, cnt, device):
-    """repeat(first, cnt) + offsets within each run, on ``device``."""
-    first = torch.as_tensor(first, dtype=torch.int64, device=device)
-    cnt = torch.as_tensor(cnt, dtype=torch.int64, device=device)
-    total = int(cnt.sum()) if len(cnt) else 0
-    if total == 0:
-        return torch.zeros(0, dtype=torch.int64, device=device)
-    starts = torch.cumsum(cnt, 0) - cnt
-    within = (torch.arange(total, device=device)
-              - torch.repeat_interleave(starts, cnt, output_size=total))
-    return torch.repeat_interleave(first, cnt, output_size=total) + within
 
 
 def host_pred_values(plan: LanePlan, ys, cnts) -> np.ndarray:
@@ -93,14 +81,14 @@ def resolve_halos(plan: LanePlan) -> int:
             if bad.any():
                 vals = host_pred_values(plan, plan.wf_nodes[bad],
                                         plan.wf_cnt[bad])
-                dst = _expand(plan.wf_dst0[bad], plan.wf_cnt[bad], dev)
+                dst = expand_ranges(plan.wf_dst0[bad], plan.wf_cnt[bad], dev)
                 store[dst] = torch.from_numpy(vals.astype(np.int32)).to(dev)
                 _drop_lists(plan, ~bad)
         sel = np.flatnonzero(plan.wf_depth == k)
         if len(sel):
             cnt = plan.wf_cnt[sel]
-            dst = _expand(plan.wf_dst0[sel], cnt, dev)
-            src = _expand(plan.wf_src0[sel], cnt, dev)
+            dst = expand_ranges(plan.wf_dst0[sel], cnt, dev)
+            src = expand_ranges(plan.wf_src0[sel], cnt, dev)
             store[dst] = store[src]
     plan.resolved = True
     return passes

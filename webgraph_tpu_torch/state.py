@@ -3,21 +3,16 @@
 HyperLogLog registers: the JAX package keeps them as uint8 ``(n, 2^log2m)``
 or packed uint32 ``(n, 2^log2m / 4)``, four registers per word in
 little-endian byte order (``hyperball.pack_registers``); the port keeps
-uint8.  A CSR is host int64 offsets plus device successors.  The decode plan
-itself is not converted: it is rebuilt from the same .graph/.offsets bytes.
+uint8.  A CSR becomes the port's device ``CSRGraph``.  The decode plan itself
+is not converted: it is rebuilt from the same .graph/.offsets bytes.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
-
-class DeviceCSR(NamedTuple):
-    offsets: np.ndarray      # int64[n+1], host
-    succ: torch.Tensor       # int32[m], device
+from .core.graph import CSRGraph
 
 
 def registers_from_jax(a, device) -> torch.Tensor:
@@ -42,13 +37,13 @@ def registers_to_jax(regs: torch.Tensor, packed: bool = False) -> np.ndarray:
     return np.ascontiguousarray(a).view("<u4").astype(np.uint32)
 
 
-def csr_from_numpy(offsets, succ, device) -> DeviceCSR:
-    """Host CSR arrays -> (host int64 offsets, device int32 successors)."""
+def csr_from_numpy(offsets, succ, device) -> CSRGraph:
+    """Host CSR arrays (the JAX package's ``CSRGraph.offsets``/``succ``)
+    -> the port's ``CSRGraph`` on ``device``."""
     offsets = np.asarray(offsets, dtype=np.int64)
     succ = np.asarray(succ)
     if len(offsets) == 0 or offsets[0] != 0 or offsets[-1] != len(succ):
         raise ValueError("offsets must start at 0 and end at len(succ)")
     if len(succ) and (succ.min() < 0 or succ.max() >= (1 << 31)):
         raise ValueError("successors must fit int32")
-    return DeviceCSR(offsets, torch.from_numpy(
-        succ.astype(np.int32)).to(device))
+    return CSRGraph(offsets, succ.astype(np.int32), device=device)

@@ -42,9 +42,9 @@ import numpy as np
 import torch
 
 from .. import native, require_cuda
+from ..core.graph import expand_ranges
 from ..ops import _build, kcompact, kplan
 from ..ops.csr import decode_to_csr
-from ..ops.resolve import _expand
 from ..settings import BVGraphSettings
 from ..utils.synth import synthesize_webgraph
 
@@ -158,7 +158,7 @@ def main() -> int:
         entries.append((name, launch, dict(
             variant=name, src=os.path.relpath(src, os.path.dirname(_PKG)),
             defs=defs, tile=tile, same_as_port=same, ptxas=ptxas)))
-    src_idx = _expand(cp.src0, cp.arc_start[1:] - cp.arc_start[:-1], dev)
+    src_idx = expand_ranges(cp.src0, cp.arc_start[1:] - cp.arc_start[:-1], dev)
     if not torch.equal(torch.index_select(store, 0, src_idx), ref):
         raise AssertionError("index_select differs from the port's kernel")
     entries.append(("index_select", lambda: torch.index_select(
