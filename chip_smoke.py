@@ -36,7 +36,19 @@ Phases, each printing one line:
    (``copy_ms``); both kernels against their plain versions at the shapes
    the slice gave them; and the CSR bit-exact against the native
    sequential decoder;
-6. analytics: on the slice's device CSR (the plan freed), each step timed
+6. files: the slice's device CSR is written to a BVGraph basename in a
+   temporary directory under the checkout (``BVGraph.store``, the native
+   encoder), read back to the card with ``load_csr(basename)`` -- the
+   cold plan, the resolve passes and ``decode_to_csr``, so B1 and B2, with
+   launch counts reset just before and read just after -- and held
+   ``torch.equal`` to it; the native decode's host CSR is written as an
+   EFGraph (``EFGraph.store``, the bulk numpy writer), decoded on the card
+   (``EFGraph.to_device``, torch ops) and held equal to it too; the line
+   gives each format's file sizes, bits per link, store and load seconds,
+   the decode stages, the EF decode's rate and peak bytes, its split into
+   the plan (upload, outdegrees) and decodes of the resident stream (one
+   under ``torch.profiler``), and the card;
+7. analytics: on the slice's device CSR (the plan freed), each step timed
    alone (host clock + synchronise, peak device bytes) and then checked
    against something independent of the code under test: stats against
    numpy bincounts of the native decode's CSR; the transpose's offsets and
@@ -65,8 +77,10 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,11 +97,15 @@ from webgraph_tpu_torch import algo as A  # noqa: E402
 from webgraph_tpu_torch import transform as TR  # noqa: E402
 from webgraph_tpu_torch.algo import centrality as CE  # noqa: E402
 from webgraph_tpu_torch.algo import hyperball as HB  # noqa: E402
+from webgraph_tpu_torch.codecs.bvgraph import BVGraph  # noqa: E402
+from webgraph_tpu_torch.codecs.efgraph import EFGraph  # noqa: E402
 from webgraph_tpu_torch.core.graph import CSRGraph, expand_ranges  # noqa
+from webgraph_tpu_torch.core.graph import load_csr  # noqa: E402
 from webgraph_tpu_torch.utils.stats import compute_stats  # noqa: E402
 from webgraph_tpu_torch.experiments import common as PC  # noqa: E402
 from webgraph_tpu_torch.ops import _build, kcompact, kdecode, kplan  # noqa
 from webgraph_tpu_torch.ops.csr import decode_to_csr  # noqa: E402
+from webgraph_tpu_torch.ops.efdecode import EFDevicePlan  # noqa: E402
 from webgraph_tpu_torch.ops.resolve import resolve_halos  # noqa: E402
 
 KERNELS = {
@@ -176,7 +194,9 @@ class Errors:
             raise AssertionError(f"{name} != plain on {what}: max abs {e}")
 
 
-def phase_device() -> torch.device:
+def phase_device() -> tuple:
+    """(the device, the card's name and power limit as nvidia-smi gives
+    them)."""
     dev = require_cuda()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -185,7 +205,7 @@ def phase_device() -> torch.device:
                         count=torch.cuda.device_count(),
                         torch=torch.__version__, cuda=torch.version.cuda))
     print(smi[0], flush=True)
-    return dev
+    return dev, smi[0]
 
 
 def phase_build() -> dict:
@@ -532,6 +552,98 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
         bit_exact=True)
 
 
+def _sizes(base: str) -> dict:
+    return {ext[1:]: os.path.getsize(base + ext)
+            for ext in (".graph", ".offsets", ".properties")}
+
+
+def phase_files(dev, card: str, graph, hco, hsu) -> dict:
+    """The file layer at the slice's scale: BVGraph and EFGraph basenames
+    written, read back to the card through the port's entries, and held
+    equal to the slice's CSR.  The directory is removed at the end."""
+    n, m = graph.num_nodes, graph.num_arcs
+    if int(hsu.max(initial=-1)) >= n:
+        raise AssertionError("a successor at or above n: no EF upper bound")
+    tmp = tempfile.mkdtemp(prefix=".files_smoke_", dir=ROOT)
+    try:
+        bv, ef = os.path.join(tmp, "bv"), os.path.join(tmp, "ef")
+        t0 = time.perf_counter()
+        BVGraph.store(graph, bv)
+        bv_store_s = time.perf_counter() - t0
+
+        # BVGraph: the files to the card, launch counts reset just before
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        g = load_csr(bv)
+        torch.cuda.synchronize()
+        bv_total_s = time.perf_counter() - t0
+        launches = {k: _build.LAUNCHES[k] for k in KERNELS}
+        rep = g.report
+        if rep["route"] != "kernel":
+            raise AssertionError(f"load_csr took the {rep['route']} route")
+        for k, v in launches.items():
+            if v <= 0:
+                raise AssertionError(f"load_csr never launched {k}")
+        if not (g.device == dev and torch.equal(g.offsets, graph.offsets)
+                and torch.equal(g.succ, graph.succ)):
+            raise AssertionError("load_csr differs from the slice's CSR")
+        del g
+
+        # EFGraph: written from the host CSR, decoded on the card
+        t0 = time.perf_counter()
+        EFGraph.store(CSRGraph(hco, hsu, device="cpu"), ef)
+        ef_store_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        efg = EFGraph.load(ef)
+        ef_load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        g = efg.to_device()
+        torch.cuda.synchronize()
+        ef_peak = torch.cuda.max_memory_allocated() - resident
+        ef_s = g.report["ef_decode_s"]
+        if not (g.device == dev and torch.equal(g.offsets, graph.offsets)
+                and torch.equal(g.succ, graph.succ)):
+            raise AssertionError("EFGraph.to_device differs from the "
+                                 "slice's CSR")
+        del g
+        # where ef_decode_s goes: the plan (upload, outdegrees, arc count),
+        # then decodes of the resident stream, one under the profiler
+        t0 = time.perf_counter()
+        plan = EFDevicePlan(efg.words, efg.offsets, efg.upper_bound,
+                            efg.log2_quantum, device=dev)
+        torch.cuda.synchronize()
+        ef_plan_s = time.perf_counter() - t0
+        ef_steady_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            plan.decode()
+            torch.cuda.synchronize()
+            ef_steady_s.append(time.perf_counter() - t0)
+        ef_profile = profile_window(plan.decode)
+        del plan, efg
+        sizes = {"BVGraph": _sizes(bv), "EFGraph": _sizes(ef)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(
+        card=card, nodes=n, arcs=m, sizes=sizes,
+        bits_per_link={k: v["graph"] * 8 / m for k, v in sizes.items()},
+        store_s={"BVGraph": bv_store_s, "EFGraph": ef_store_s},
+        load_s={"BVGraph": rep["load_s"], "EFGraph": ef_load_s},
+        route=rep["route"], plan_s=rep["plan_s"],
+        resolve_s=rep["resolve_s"], resolve_passes=rep["resolve_passes"],
+        decode_to_csr_s=rep["decode_to_csr_s"],
+        fallback_arcs=rep["fallback_arcs"], load_csr_s=bv_total_s,
+        launches=launches, ef_decode_s=ef_s,
+        ef_decode_Medges_per_s=m / ef_s / 1e6,
+        ef_decode_peak_bytes=ef_peak, ef_resident_bytes=resident,
+        ef_plan_s=ef_plan_s, ef_resident_decode_s=min(ef_steady_s),
+        ef_profile=ef_profile, equal_to_slice=True)
+
+
 class Steps:
     """Per analytics step: seconds on the host clock ending in a
     synchronise, the peak device bytes while it ran, and its summary."""
@@ -838,7 +950,7 @@ def profile_window(fn) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
-    dev = phase_device()
+    dev, card = phase_device()
     ptxas = phase_build()
     errors = Errors()
     phase_kernels(dev, errors)
@@ -848,6 +960,7 @@ def main() -> int:
     ctx, res = phase_slice(dev, errors, SLICE_NODES)
     emit("slice", res)
     torch.cuda.empty_cache()
+    emit("files", phase_files(dev, card, **ctx))
     emit("analytics", phase_analytics(dev, **ctx))
     del ctx
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),

@@ -332,3 +332,64 @@ def test_hyperball_on_card_matches_cpu(cuda, mode, tmp_path):
            k.reachable_counts()])
     if mode == "sparse":
         assert "systolic" in k.mode_history or "local" in k.mode_history
+
+
+# -- the file entries on the card against the same entries on the CPU -------
+
+
+def _file_graph(tmp_path, settings=None):
+    """A small synthetic web graph written as a BVGraph and an EFGraph
+    basename by the port; returns (co, su, BVGraph base, EFGraph base)."""
+    from webgraph_tpu_torch.codecs.bvgraph import BVGraph
+    from webgraph_tpu_torch.codecs.efgraph import EFGraph
+    from webgraph_tpu_torch.core.graph import CSRGraph
+    co, su = E.simple(*synthesize_webgraph(4000, seed=9))
+    g = CSRGraph(co, su, device="cpu")
+    bv, ef = str(tmp_path / "bv"), str(tmp_path / "ef")
+    BVGraph.store(g, bv, settings=settings)
+    EFGraph.store(g, ef, log2_quantum=4)
+    return co, su, bv, ef
+
+
+@pytest.mark.parametrize("residuals", [C.ZETA, C.GOLOMB])
+def test_load_csr_on_card_matches_cpu(cuda, tmp_path, residuals):
+    """``load_csr`` with no device runs on the card: the kernel route
+    launches B1 and B2 (Golomb codes take the host route) and the CSR
+    equals the CPU entry's."""
+    from webgraph_tpu_torch.core.graph import load_csr
+    co, su, bv, _ef = _file_graph(
+        tmp_path, BVGraphSettings(residual_coding=residuals))
+    _build.reset_launches()
+    g = load_csr(bv)
+    torch.cuda.synchronize()
+    route = "kernel" if residuals == C.ZETA else "host"
+    assert g.device.type == "cuda" and g.report["route"] == route
+    launched = [_build.LAUNCHES[k] for k in ("bv_decode_lanes",
+                                             "compact_runs")]
+    assert all(v > 0 for v in launched) == (route == "kernel")
+    c = load_csr(bv, device="cpu")
+    assert c.report["route"] == route
+    assert torch.equal(g.offsets.cpu(), c.offsets)
+    assert torch.equal(g.succ.cpu(), c.succ)
+    np.testing.assert_array_equal(c.succ.numpy(), su)
+
+
+@pytest.mark.parametrize("chunk", [None, 1000])
+def test_ef_to_device_on_card_matches_cpu(cuda, tmp_path, chunk):
+    from webgraph_tpu_torch.codecs.efgraph import EFGraph
+    from webgraph_tpu_torch.ops.efdecode import EFDevicePlan
+    co, su, _bv, ef = _file_graph(tmp_path)
+    efg = EFGraph.load(ef)
+    if chunk is None:
+        g = efg.to_device()
+        offs, succ = g.offsets, g.succ
+    else:
+        offs, succ = EFDevicePlan(efg.words, efg.offsets, efg.upper_bound,
+                                  efg.log2_quantum, device=cuda).decode(
+                                      chunk_arcs=chunk)
+    torch.cuda.synchronize()
+    assert succ.is_cuda
+    c = efg.to_device("cpu")
+    assert torch.equal(offs.cpu(), c.offsets)
+    assert torch.equal(succ.cpu(), c.succ)
+    np.testing.assert_array_equal(c.succ.numpy(), su)

@@ -64,8 +64,10 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "pre = 'jax' in sys.modules or 'webgraph_tpu' in sys.modules\n"
         "import webgraph_tpu_torch, webgraph_tpu_torch.state\n"
-        "from webgraph_tpu_torch.ops import (_build, bitstream, csr, "
-        "kcompact, kdecode, kplan, resolve)\n"
+        "from webgraph_tpu_torch.ops import (_build, bitio, bitstream, csr, "
+        "ef_index, efdecode, kcompact, kdecode, kplan, longword, resolve)\n"
+        "from webgraph_tpu_torch.codecs import bvgraph, efgraph\n"
+        "from webgraph_tpu_torch.utils import properties\n"
         "from webgraph_tpu_torch.algo import (bfs, cc, centrality, "
         "hyperball, scc)\n"
         "from webgraph_tpu_torch import algo, transform\n"

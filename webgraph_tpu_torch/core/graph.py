@@ -1,21 +1,39 @@
-"""Device-resident CSR graph: what the decode produces and analytics consume.
+"""Graphs: the host graph contract, file dispatch, and the device CSR.
 
-Counterpart of ``webgraph_tpu/core/graph.py`` ``CSRGraph`` (``:142-223``).
-Offsets are int64[n+1] and successors int32[m], both on one device (the
-JAX package keeps int64 numpy arrays on the host and uploads per call).
-Every method works on that device: sorting, deduplication and the per-arc
-source index are torch ops there.  ``from_decoded`` wraps the output of
-``ops.csr.decode_to_csr`` without bringing the successors to the host.
+Counterpart of ``webgraph_tpu/core/graph.py``:
+
+- ``ImmutableGraph`` (``:53-140``), the host contract of the graph files
+  (``codecs/bvgraph.py``, ``codecs/efgraph.py``): sorted int64 numpy
+  successor lists, random access and sequential scans;
+- ``GRAPH_CLASS_REGISTRY``, ``register_graph_class``, ``load`` and ``store``
+  (``:38-50``, ``:226-258``): dispatch on a basename's ``graphclass``
+  property, the big and the standard Java names alike;
+- ``CSRGraph`` (``:142-223``), here on a device: offsets int64[n+1] and
+  successors int32[m], both on one device (the JAX package keeps int64
+  numpy arrays on the host and uploads per call).  Every method works on
+  that device: sorting, deduplication and the per-arc source index are
+  torch ops there.  ``from_decoded`` wraps the output of
+  ``ops.csr.decode_to_csr`` without bringing the successors to the host;
+- ``load_csr``, the device entry: a basename to a ``CSRGraph`` on the GPU
+  (or on a device the caller names).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+import importlib
+import time
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["CSRGraph", "expand_ranges"]
+from ..utils import properties as javaprops
+
+__all__ = ["CSRGraph", "expand_ranges", "ImmutableGraph", "load", "store",
+           "load_csr", "register_graph_class", "GRAPH_CLASS_REGISTRY",
+           "host_csr", "host_lists"]
+
+PROPERTIES_EXTENSION = ".properties"
 
 _INT32_LIMIT = 1 << 31
 
@@ -51,6 +69,10 @@ def _device_of(x, device) -> torch.device:
 class CSRGraph:
     """CSR graph on ``device``: ``offsets`` int64[n+1], ``succ`` int32[m].
     ``device`` defaults to the successors' own when they are a tensor."""
+
+    #: set by the file entries (``load_csr``, ``to_device``): the format,
+    #: the route the decode took and its stages' seconds; else None
+    report: Optional[dict] = None
 
     def __init__(self, offsets, successors, num_nodes: Optional[int] = None,
                  device=None):
@@ -165,3 +187,179 @@ class CSRGraph:
     def transpose(self) -> "CSRGraph":
         return CSRGraph.from_arcs(self.succ, self.arc_sources(), self._n,
                                   dedup=False, device=self.device)
+
+
+# -- the host contract and file dispatch ------------------------------------
+
+#: Maps the ``graphclass`` property value to the loader class.  Both the big
+#: (64-bit) and standard (32-bit) Java class names map to the same class:
+#: the on-disk formats are identical (ImmutableGraph.java:920/:1039).
+GRAPH_CLASS_REGISTRY: Dict[str, type] = {}
+_CODECS = ("codecs.bvgraph", "codecs.efgraph")
+
+
+def register_graph_class(*java_names):
+    """Class decorator registering Java ``graphclass`` aliases for a loader."""
+
+    def deco(cls):
+        for name in java_names:
+            GRAPH_CLASS_REGISTRY[name] = cls
+        cls.java_class_names = java_names
+        return cls
+
+    return deco
+
+
+class ImmutableGraph:
+    """Base class of the host graphs of the file layer.
+
+    Subclasses implement :attr:`num_nodes`, :attr:`num_arcs`,
+    :meth:`successors` (random access, where supported) and
+    :meth:`iter_nodes` (sequential access); successor lists are sorted int64
+    numpy arrays.
+    """
+
+    properties: Dict[str, str]
+
+    @property
+    def num_nodes(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def num_arcs(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def random_access(self) -> bool:
+        return True
+
+    def outdegree(self, x: int) -> int:
+        return len(self.successors(x))
+
+    def successors(self, x: int) -> np.ndarray:
+        """Sorted int64 array of successors of node ``x``."""
+        raise NotImplementedError
+
+    def iter_nodes(self, start: int = 0) -> Iterator[Tuple[int, np.ndarray]]:
+        """Sequential scan yielding ``(node, successors)`` pairs from
+        ``start``."""
+        for x in range(start, self.num_nodes):
+            yield x, self.successors(x)
+
+    def split_ranges(self, pieces: int) -> List[Tuple[int, int]]:
+        """Contiguous [lo, hi) node ranges for parallel scans (the
+        analogue of splitNodeIterators, ImmutableGraph.java:405)."""
+        n = self.num_nodes
+        if pieces <= 0:
+            raise ValueError("pieces must be positive")
+        bounds = np.linspace(0, n, pieces + 1).astype(np.int64)
+        return [(int(bounds[i]), int(bounds[i + 1])) for i in range(pieces)]
+
+    def to_csr(self, lo: int = 0, hi: Optional[int] = None, *,
+               device) -> "CSRGraph":
+        """Nodes [lo, hi), scanned on the host, as a ``CSRGraph`` on
+        ``device`` (offsets renumbered to 0)."""
+        hi = self.num_nodes if hi is None else hi
+        offs = [0]
+        chunks = []
+        for x, succ in self.iter_nodes(lo):
+            if x >= hi:
+                break
+            chunks.append(np.asarray(succ, dtype=np.int64))
+            offs.append(offs[-1] + len(chunks[-1]))
+        succ = np.concatenate(chunks) if chunks else np.zeros(0, np.int64)
+        return CSRGraph(np.asarray(offs, dtype=np.int64), succ,
+                        num_nodes=hi - lo, device=device)
+
+    def equals(self, other) -> bool:
+        """Successor-list equality (ImmutableGraph.java equals)."""
+        if self.num_nodes != other.num_nodes:
+            return False
+        for (x, a), (y, b) in zip(self.iter_nodes(), other.iter_nodes()):
+            a = np.asarray(a, dtype=np.int64)
+            b = np.asarray(b.cpu() if isinstance(b, torch.Tensor) else b,
+                           dtype=np.int64)
+            if x != y or not np.array_equal(a, b):
+                return False
+        return True
+
+    @classmethod
+    def load(cls, basename: str, mode: str = "standard") -> "ImmutableGraph":
+        raise NotImplementedError
+
+    @classmethod
+    def store(cls, graph, basename: str, **kwargs):
+        raise NotImplementedError
+
+
+def host_csr(graph) -> Tuple[np.ndarray, np.ndarray]:
+    """(offsets int64[n+1], successors int64[m]) numpy arrays of a
+    ``CSRGraph`` on any device (brought to the host once) or of any graph
+    with ``iter_nodes``."""
+    if isinstance(graph, CSRGraph):
+        return (graph.offsets.cpu().numpy(),
+                graph.succ.cpu().to(torch.int64).numpy())
+    offs = [0]
+    lists = []
+    for _x, succ in graph.iter_nodes():
+        lists.append(np.asarray(succ, dtype=np.int64))
+        offs.append(offs[-1] + len(lists[-1]))
+    return (np.asarray(offs, dtype=np.int64),
+            np.concatenate(lists) if lists else np.zeros(0, np.int64))
+
+
+def host_lists(graph) -> Iterator[Tuple[int, np.ndarray]]:
+    """(node, int64 numpy successors) pairs of a ``CSRGraph`` on any
+    device or of any graph with ``iter_nodes``."""
+    if isinstance(graph, CSRGraph):
+        co, su = host_csr(graph)
+        for x in range(len(co) - 1):
+            yield x, su[co[x]:co[x + 1]]
+    else:
+        for x, succ in graph.iter_nodes():
+            yield x, np.asarray(succ, dtype=np.int64)
+
+
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def load(basename: str, mode: str = "standard") -> ImmutableGraph:
+    """Load any graph by its ``.properties`` file (ImmutableGraph.java:674).
+    ``mode``: "standard" (in memory), "mapped" (memory-map the stream),
+    "offline"/"once"/"sequential" (no offsets: sequential access only)."""
+    props = javaprops.load(basename + PROPERTIES_EXTENSION)
+    gc = props.get("graphclass", "").replace("class ", "").strip()
+    if gc not in GRAPH_CLASS_REGISTRY:
+        # codec classes register themselves on import
+        for mod in _CODECS:
+            importlib.import_module(f"{__package__.rsplit('.', 1)[0]}.{mod}")
+    cls = GRAPH_CLASS_REGISTRY.get(gc)
+    if cls is None:
+        raise IOError(f"Unknown graphclass {gc!r} for basename {basename!r}")
+    return cls.load(basename, mode=mode)
+
+
+def store(graph, basename: str, graph_class=None, **kwargs):
+    """Store ``graph`` with the given codec class (default BVGraph)."""
+    if graph_class is None:
+        from ..codecs.bvgraph import BVGraph as graph_class  # noqa: N813
+    return graph_class.store(graph, basename, **kwargs)
+
+
+def load_csr(basename: str, device=None) -> CSRGraph:
+    """The graph at ``basename`` as a ``CSRGraph`` on ``device``: the GPU
+    when None, the CPU only when the caller names it.  Loads the files
+    (``load_s`` in the result's ``report``), then the codec's
+    ``to_device`` decodes on the device."""
+    from ..device import require_cuda
+
+    dev = require_cuda() if device is None else torch.device(device)
+    t0 = time.perf_counter()
+    g = load(basename)
+    load_s = time.perf_counter() - t0
+    csr = g.to_device(dev)
+    csr.report = dict(csr.report, load_s=load_s)
+    return csr

@@ -17,8 +17,8 @@ from typing import Optional
 import numpy as np
 
 __all__ = ["decode_offset_stream", "decode_outdegrees",
-           "bv_decode_all", "bv_encode", "bv_scan_refs", "bv_fill_ranges",
-           "lib_path"]
+           "bv_decode_all", "bv_decode_range", "bv_encode", "bv_scan_refs",
+           "bv_fill_ranges", "StreamEncoder", "lib_path"]
 
 #: stats words returned by bv_encode: copied, intervalised, residual arcs;
 #: tot_ref, tot_dist; bits for outdegrees/references/blocks/intervals/
@@ -36,9 +36,12 @@ def _load() -> ctypes.CDLL:
         from ..ops import _build
         path = _build.build_native()
         lib = ctypes.CDLL(path)
-        for fn in ("wg_bv_decode_all", "wg_bv_encode", "wg_bv_fill_ranges",
-                   "wg_bv_scan_refs"):
+        for fn in ("wg_bv_decode_all", "wg_bv_decode_range", "wg_bv_encode",
+                   "wg_bv_fill_ranges", "wg_bv_scan_refs", "wg_enc_push",
+                   "wg_enc_finish"):
             getattr(lib, fn).restype = ctypes.c_int64
+        lib.wg_enc_new.restype = ctypes.c_void_p
+        lib.wg_enc_free.restype = None
         lib.wg_decode_offset_stream.restype = ctypes.c_int
         lib.wg_decode_outdegrees.restype = ctypes.c_int
         lib.wg_buffer_free.restype = None
@@ -117,6 +120,43 @@ def bv_decode_all(data: np.ndarray, n: int, m: int, settings) -> tuple:
     if wrote < 0:
         raise RuntimeError(f"native decode failed: {wrote}")
     return csr_off, succ[:wrote]
+
+
+def bv_decode_range(data: np.ndarray, settings, p: int, x0: int, x1: int,
+                    start_bit: int, init_win_outd: np.ndarray,
+                    expected_arcs: int, tail_n: int = 0,
+                    padded: bool = False):
+    """Decode nodes [x0, x1) starting the scan at halo node ``p`` whose bit
+    offset is ``start_bit``; ``init_win_outd[j - 1]`` = outdegree(p - j).
+
+    Returns (csr_off int64[x1-x0+1], succ int64[arcs], tail_bits
+    int64[tail_n]): tail_bits are the bit offsets of the last tail_n
+    parsed nodes, the next slice's halo start of a sequential scan.
+    Raises RuntimeError ending in "-3" when ``expected_arcs`` is too small.
+    ``padded=True`` promises ``data`` already ends in >= 16 zero guard
+    bytes."""
+    lib = _load()
+    if not padded:
+        data = _padded(data)
+    nr = x1 - x0
+    csr_off = np.empty(nr + 1, dtype=np.int64)
+    succ = np.empty(max(expected_arcs, 1), dtype=np.int64)
+    win = np.zeros(max(settings.window_size + 1, 1), dtype=np.int64)
+    win[1:1 + len(init_win_outd)] = init_win_outd
+    tail = np.zeros(max(tail_n, 1), dtype=np.int64)
+    wrote = lib.wg_bv_decode_range(
+        _ptr(data), ctypes.c_int64(len(data) - 16),
+        ctypes.c_int64(p), ctypes.c_int64(x0), ctypes.c_int64(x1),
+        ctypes.c_int64(start_bit), _ptr(win, ctypes.c_int64),
+        ctypes.c_int(settings.window_size),
+        ctypes.c_int(settings.min_interval_length),
+        ctypes.c_int(settings.zeta_k), _ptr(_codings(settings), ctypes.c_int),
+        _ptr(csr_off, ctypes.c_int64), _ptr(succ, ctypes.c_int64),
+        ctypes.c_int64(len(succ)), ctypes.c_int64(tail_n),
+        _ptr(tail, ctypes.c_int64))
+    if wrote < 0:
+        raise RuntimeError(f"native range decode failed: {wrote}")
+    return csr_off, succ[:wrote], tail[:tail_n]
 
 
 def bv_scan_refs(data: np.ndarray, offsets: np.ndarray, settings,
@@ -216,3 +256,76 @@ def bv_encode(csr_off: np.ndarray, succ: np.ndarray, settings,
         lib.wg_buffer_free(g_ptr)
         lib.wg_buffer_free(o_ptr)
     return graph, g_bits.value, offs, o_bits.value, stats
+
+
+def _take(lib, ptr, bits: int) -> np.ndarray:
+    """Copy ``ceil(bits / 8)`` bytes out of a library buffer, then free it."""
+    try:
+        n = (bits + 7) // 8
+        return np.ctypeslib.as_array(ptr, shape=(max(n, 1),))[:n].copy()
+    finally:
+        lib.wg_buffer_free(ptr)
+
+
+class StreamEncoder:
+    """Streaming BVGraph encoder (wg_enc_*): push CSR slices of unbounded
+    total size; window and reference state carry across pushes, so the
+    output is byte-identical to a single-stream encode of the whole graph,
+    and nothing beyond one slice is ever held."""
+
+    def __init__(self, settings):
+        lib = _load()
+        self._lib = lib
+        self.settings = settings
+        self._h = ctypes.c_void_p(lib.wg_enc_new(
+            ctypes.c_int(settings.window_size),
+            ctypes.c_int(settings.max_ref_count),
+            ctypes.c_int(settings.min_interval_length),
+            ctypes.c_int(settings.zeta_k),
+            _ptr(_codings(settings, offsets=True), ctypes.c_int)))
+        self.nodes = 0
+        self.bits = 0
+
+    def push(self, csr_off: np.ndarray, succ: np.ndarray) -> int:
+        """Encode len(csr_off)-1 more nodes; returns graph bits so far."""
+        if self._h is None:
+            raise RuntimeError("encoder already finished")
+        csr_off = np.ascontiguousarray(csr_off, dtype=np.int64)
+        succ = np.ascontiguousarray(succ, dtype=np.int64)
+        k = len(csr_off) - 1
+        bits = self._lib.wg_enc_push(
+            self._h, _ptr(csr_off, ctypes.c_int64),
+            _ptr(succ, ctypes.c_int64), ctypes.c_int64(k))
+        if bits < 0:
+            raise RuntimeError(f"native streaming encode failed: {bits}")
+        self.nodes += k
+        self.bits = bits
+        return bits
+
+    def finish(self):
+        """Returns (graph_bytes, graph_bits, offsets_bytes, offsets_bits,
+        stats) and frees the native handle."""
+        if self._h is None:
+            raise RuntimeError("encoder already finished")
+        lib = self._lib
+        stats = np.zeros(STAT_WORDS, dtype=np.int64)
+        g_ptr = ctypes.POINTER(ctypes.c_uint8)()
+        o_ptr = ctypes.POINTER(ctypes.c_uint8)()
+        g_bits = ctypes.c_int64()
+        o_bits = ctypes.c_int64()
+        try:
+            lib.wg_enc_finish(self._h, ctypes.byref(g_ptr),
+                              ctypes.byref(g_bits), ctypes.byref(o_ptr),
+                              ctypes.byref(o_bits),
+                              _ptr(stats, ctypes.c_int64))
+            graph = _take(lib, g_ptr, g_bits.value)
+            offs = _take(lib, o_ptr, o_bits.value)
+        finally:
+            lib.wg_enc_free(self._h)
+            self._h = None
+        return graph, g_bits.value, offs, o_bits.value, stats
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None:
+            self._lib.wg_enc_free(self._h)
+            self._h = None

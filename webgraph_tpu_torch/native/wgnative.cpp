@@ -4,8 +4,9 @@
 // (webgraph_tpu/native/wgnative.cpp) that the port, its smoke run and its
 // tests call: offsets-index decode, outdegree scan, the full sequential
 // decoder (the oracle the device CSR is held against), the range decoder
-// behind the host fill of flagged lanes, the header-only reference scan of
-// cold plans, and the parallel encoder.  MSB-first bit discipline; the
+// behind the host fill of flagged lanes and the sliced scan, the
+// header-only reference scan of cold plans, the parallel encoder and the
+// streaming encoder of sequential sources.  MSB-first bit discipline; the
 // encoder is byte-identical to the JAX package's (tests/test_torch_native.py).
 //
 // Built with g++ on first use by webgraph_tpu_torch/ops/_build.py
@@ -961,6 +962,75 @@ int64_t wg_bv_encode(const int64_t* csr_off, const int64_t* succ, int64_t n,
 }
 
 void wg_buffer_free(uint8_t* p) { std::free(p); }
+
+// ------------------------------------------------------------------------
+// Streaming encoder: push CSR slices of unbounded total size (the
+// webgraph-"big" regime, > 2^31 nodes/arcs) through a single window-carrying
+// encoder.  Mirrors BVGraph.store over an ImmutableSequentialGraph
+// (BVGraph.java:2373 with one thread; window state carries across slices
+// because Encoder owns copies of the last window_size+1 lists).
+
+namespace {
+struct StreamEnc {
+    EncSettings es;
+    int c_off;
+    std::vector<int64_t> stats;
+    Encoder enc;
+    BitWriter gw, ow;
+    int64_t x = 0;
+
+    StreamEnc(const EncSettings& e, int coff)
+        : es(e), c_off(coff), stats(STAT_WORDS, 0), enc(e, stats.data()) {
+        // leading offsets entry (a zero in the offsets coding)
+        write_coded(ow, 0, c_off, es.zeta_k);
+    }
+};
+
+uint8_t* copy_bits(BitWriter& w, int64_t* bits) {
+    int64_t b = w.written_bits();
+    w.flush();
+    *bits = b;
+    uint8_t* p = (uint8_t*)std::malloc(w.out.size() ? w.out.size() : 1);
+    std::memcpy(p, w.out.data(), w.out.size());
+    return p;
+}
+}  // namespace
+
+void* wg_enc_new(int window_size, int max_ref_count, int min_interval_length,
+                 int zeta_k, const int* codings) {
+    EncSettings es{window_size, max_ref_count, min_interval_length, zeta_k,
+                   codings[0], codings[1], codings[2], codings[3],
+                   codings[4]};
+    return new StreamEnc(es, codings[5]);
+}
+
+// Encode k more nodes whose slice-local CSR is csr_off[0..k] over succ.
+// Returns total graph bits so far, or -1 on error.
+int64_t wg_enc_push(void* h, const int64_t* csr_off, const int64_t* succ,
+                    int64_t k) {
+    StreamEnc* se = (StreamEnc*)h;
+    for (int64_t i = 0; i < k; i++) {
+        int64_t bits = se->enc.encode_node(se->gw, se->x,
+                                           succ + csr_off[i],
+                                           csr_off[i + 1] - csr_off[i]);
+        write_coded(se->ow, bits, se->c_off, se->es.zeta_k);
+        se->x++;
+    }
+    return se->gw.written_bits();
+}
+
+// Finish: copy out graph/offsets streams + stats.  Returns nodes encoded.
+int64_t wg_enc_finish(void* h, uint8_t** graph_out, int64_t* graph_bits,
+                      uint8_t** offsets_out, int64_t* offsets_bits,
+                      int64_t* stats) {
+    StreamEnc* se = (StreamEnc*)h;
+    *graph_out = copy_bits(se->gw, graph_bits);
+    *offsets_out = copy_bits(se->ow, offsets_bits);
+    for (int i = 0; i < STAT_WORDS; i++) stats[i] = se->stats[(size_t)i];
+    return se->x;
+}
+
+void wg_enc_free(void* h) { delete (StreamEnc*)h; }
 
 // ------------------------------------------------------------------------
 // Batched range decode: nr independent ranges in ONE call (the per-call
