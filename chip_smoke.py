@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch / CUDA port (``webgraph_tpu_torch``) on one GPU.
 
 Drives the port's main path -- a cold BVGraph decode planned from the
-stream and its offsets alone, into a device-resident CSR, then the
+stream and its offsets alone, into a device-resident CSR, its files
+written and read back, its transforms encoded on the device, then the
 analytics over it (HyperBall to convergence, BFS, connected and strongly
 connected components, geometric centrality, statistics) -- at uk-2002
 scale (18.5M nodes, ~355M arcs of a synthetic web graph), after holding
@@ -48,7 +49,28 @@ Phases, each printing one line:
    the decode stages, the EF decode's rate and peak bytes, its split into
    the plan (upload, outdegrees) and decodes of the resident stream (one
    under ``torch.profiler``), and the card;
-7. analytics: on the slice's device CSR (the plan freed), each step timed
+7. encode: the device encoder (``BVGraph.store(backend="cuda")``,
+   ``ops/vencode.py``) and the transforms at the slice's scale.  The
+   slice's device CSR is stored and held byte-equal (``.graph``,
+   ``.offsets``, ``.properties`` bar the date line) to the single-stream
+   native encode (``native.bv_encode(..., threads=1)`` through
+   ``BVGraph.store(backend="native", num_threads=1)``, timed as the
+   yardstick); its Gray-code renumbering (``gray_code_permutation``, its
+   tie groups resolved in bulk on the card, then ``apply_permutation``),
+   its transpose and its symmetrization are stored the same way; each of
+   the four is read back with ``load_csr`` -- launch counts reset just
+   before, B1 and B2 launched -- and held ``torch.equal`` to the graph
+   stored.  Then ``transpose_offline`` and ``symmetrize_offline`` of a
+   1,000,000-node synthetic, in 5 batches or more, merged and stored with
+   the device encoder and read back equal to the in-memory transforms.
+   The line gives each store's seconds and rate, its split (setup, arc
+   arrays and masks, cost matrix, its copy to the host, ``select_refs``,
+   pack, concatenation, offsets, file writes), its peak device bytes above
+   what is resident and its bits per link; the chunk size; the cost
+   matrix's copy rate; one chunk's pack under ``torch.profiler``; the tie
+   groups; and the card.  Everything it made is freed before the next
+   phase;
+8. analytics: on the slice's device CSR (the plan freed), each step timed
    alone (host clock + synchronise, peak device bytes) and then checked
    against something independent of the code under test: stats against
    numpy bincounts of the native decode's CSR; the transpose's offsets and
@@ -104,6 +126,7 @@ from webgraph_tpu_torch.core.graph import load_csr  # noqa: E402
 from webgraph_tpu_torch.utils.stats import compute_stats  # noqa: E402
 from webgraph_tpu_torch.experiments import common as PC  # noqa: E402
 from webgraph_tpu_torch.ops import _build, kcompact, kdecode, kplan  # noqa
+from webgraph_tpu_torch.ops import vencode  # noqa: E402
 from webgraph_tpu_torch.ops.csr import decode_to_csr  # noqa: E402
 from webgraph_tpu_torch.ops.efdecode import EFDevicePlan  # noqa: E402
 from webgraph_tpu_torch.ops.resolve import resolve_halos  # noqa: E402
@@ -142,6 +165,10 @@ HB_LOG2M = 6
 SAMPLE = 2000
 CENTRALITY_SOURCES = 32
 CENTRALITY_CHECKED = 4
+# the encode phase's offline transforms: a smaller graph (the batches are
+# merged on the host by a per-node heap) cut into this many batches or more
+OFFLINE_NODES = 1_000_000
+OFFLINE_BATCHES = 5
 
 
 def emit(tag: str, obj) -> None:
@@ -644,6 +671,178 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
         ef_profile=ef_profile, equal_to_slice=True)
 
 
+def _props_lines(path: str) -> list:
+    """A .properties file's lines bar the date comment (its second line)."""
+    with open(path, encoding="iso-8859-1") as f:
+        lines = f.read().split("\n")
+    return [lines[0]] + lines[2:]
+
+
+def _same_csr(g, want, what: str) -> None:
+    if not (g.device == want.device and torch.equal(g.offsets, want.offsets)
+            and torch.equal(g.succ, want.succ)):
+        raise AssertionError(f"{what}: load_csr differs from the graph "
+                             f"stored")
+
+
+def _device_store(graph, base: str) -> dict:
+    """``BVGraph.store(graph, base, backend="cuda")`` on the card: its
+    seconds (host clock, ending in a synchronise), its stage split, and its
+    peak device bytes above what was resident."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    rep = {}
+    t0 = time.perf_counter()
+    BVGraph.store(graph, base, backend="cuda", report=rep)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return dict(encode_s=secs,
+                encode_Medges_per_s=graph.num_arcs / secs / 1e6,
+                peak_above_resident=torch.cuda.max_memory_allocated()
+                - resident, resident_bytes=resident,
+                bits_per_link=os.path.getsize(base + ".graph") * 8
+                / max(graph.num_arcs, 1), split=rep)
+
+
+def _read_back(base: str, want, what: str) -> dict:
+    """``load_csr(base)`` with launch counts reset just before; it must
+    equal ``want`` and launch B1 and B2."""
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    g = load_csr(base)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES[k] for k in KERNELS}
+    if g.report["route"] != "kernel":
+        raise AssertionError(f"{what}: load_csr took the "
+                             f"{g.report['route']} route")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"{what}: load_csr never launched {k}")
+    _same_csr(g, want, what)
+    return dict(load_csr_s=secs, launches=launches)
+
+
+def phase_encode(dev, card: str, graph, hco, hsu) -> dict:
+    """The device encoder and the transforms at the slice's scale: the
+    slice's CSR, its Gray-code renumbering, its transpose and its
+    symmetrization, each stored with ``backend="cuda"`` and read back
+    through ``load_csr`` equal; the first held byte-equal to the
+    single-stream native encode; then the offline transforms at
+    ``OFFLINE_NODES``, stored and read back equal to the in-memory ones.
+    The directory and every graph made here are freed at the end."""
+    s = BVGraphSettings()
+    out = dict(card=card, nodes=graph.num_nodes, arcs=graph.num_arcs,
+               chunk_arcs=vencode.DEFAULT_CHUNK_ARCS)
+    tmp = tempfile.mkdtemp(prefix=".encode_smoke_", dir=ROOT)
+    try:
+        # 1. the slice, and the single-stream native encode beside it
+        base = os.path.join(tmp, "slice")
+        out["slice"] = _device_store(graph, base)
+        nat = os.path.join(tmp, "native1")
+        t0 = time.perf_counter()
+        BVGraph.store(CSRGraph(hco, hsu, device="cpu"), nat,
+                      backend="native", num_threads=1)
+        out["native_1thread_store_s"] = time.perf_counter() - t0
+        for ext in (".graph", ".offsets"):
+            with open(base + ext, "rb") as a, open(nat + ext, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"the device encode's {ext} differs"
+                                         f" from native.bv_encode(threads=1)")
+        if _props_lines(base + ".properties") != _props_lines(
+                nat + ".properties"):
+            raise AssertionError("the device encode's properties differ")
+        out["byte_identical_to_native_1thread"] = True
+        out["slice"].update(_read_back(base, graph, "slice"))
+        cm_bytes = graph.num_nodes * (s.window_size + 1) * 8
+        out["cost_matrix_bytes"] = cm_bytes
+        out["cost_copy_GB_per_s"] = (
+            cm_bytes / out["slice"]["split"]["cost_copy_s"] / 1e9)
+        # one chunk's pack under the profiler
+        out["pack_profile"] = _pack_profile(graph, s)
+
+        # 2. the Gray-code renumbering
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ties = {}
+        perm = TR.gray_code_permutation(graph, stats=ties)
+        torch.cuda.synchronize()
+        perm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gp = TR.apply_permutation(graph, perm)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        del perm
+        base = os.path.join(tmp, "gray")
+        out["gray"] = dict(permutation="gray_code_permutation",
+                           permutation_s=perm_s, apply_s=apply_s, **ties,
+                           **_device_store(gp, base))
+        out["gray"].update(_read_back(base, gp, "gray"))
+        del gp
+
+        # 3. transpose and symmetrize
+        for name, fn in (("transpose", TR.transpose),
+                         ("symmetrize", TR.symmetrize)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gt = fn(graph)
+            torch.cuda.synchronize()
+            base = os.path.join(tmp, name)
+            out[name] = dict(transform_s=time.perf_counter() - t0,
+                             arcs=gt.num_arcs, **_device_store(gt, base))
+            out[name].update(_read_back(base, gt, name))
+            del gt
+        torch.cuda.empty_cache()
+
+        # 4. offline transforms at OFFLINE_NODES, at least 4 batches each
+        co, su = synthesize_webgraph(OFFLINE_NODES, seed=1)
+        small = CSRGraph(co, su, device=dev)
+        del co, su
+        out["offline"] = {}
+        for name, off, mem, pairs in (
+                ("transpose", TR.transpose_offline, TR.transpose, 1),
+                ("symmetrize", TR.symmetrize_offline, TR.symmetrize, 2)):
+            batch = -(-pairs * small.num_arcs // OFFLINE_BATCHES)
+            t0 = time.perf_counter()
+            bg = off(small, batch_size=batch, temp_dir=tmp)
+            off_s = time.perf_counter() - t0
+            base = os.path.join(tmp, "offline_" + name)
+            t0 = time.perf_counter()
+            BVGraph.store(bg, base, backend="cuda")
+            store_s = time.perf_counter() - t0
+            nb = len(bg.batches)
+            bg.cleanup()
+            if nb < 4:
+                raise AssertionError(f"offline {name}: {nb} batches")
+            want = mem(small)
+            read = _read_back(base, want, "offline " + name)
+            out["offline"][name] = dict(
+                nodes=small.num_nodes, arcs=want.num_arcs, batches=nb,
+                batch_size=batch, batch_s=off_s, merge_and_store_s=store_s,
+                **read)
+            del want
+        del small
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pack_profile(graph, s) -> dict:
+    """``profile_window`` over the pack of the slice's first chunk (its
+    nodes' references selected over its own cost matrix)."""
+    co = graph.offsets.cpu().numpy()
+    hi = int(vencode.chunk_bounds_by_arcs(co, vencode.DEFAULT_CHUNK_ARCS)[1])
+    cco, csu = graph.offsets[:hi + 1], graph.succ[:int(co[hi])]
+    refs, _ = vencode.select_refs(vencode.cost_matrix(cco, csu, s),
+                                  np.diff(co[:hi + 1]), s)
+    vencode.pack_chunk(cco, csu, s, refs)
+    prof = profile_window(lambda: vencode.pack_chunk(cco, csu, s, refs))
+    return dict(nodes=hi, arcs=int(co[hi]), **prof)
+
+
 class Steps:
     """Per analytics step: seconds on the host clock ending in a
     synchronise, the peak device bytes while it ran, and its summary."""
@@ -960,7 +1159,13 @@ def main() -> int:
     ctx, res = phase_slice(dev, errors, SLICE_NODES)
     emit("slice", res)
     torch.cuda.empty_cache()
-    emit("files", phase_files(dev, card, **ctx))
+    files = phase_files(dev, card, **ctx)
+    emit("files", files)
+    t0 = time.perf_counter()
+    enc = phase_encode(dev, card, **ctx)
+    enc.update(seconds=time.perf_counter() - t0,
+               files_native_8thread_store_s=files["store_s"]["BVGraph"])
+    emit("encode", enc)
     emit("analytics", phase_analytics(dev, **ctx))
     del ctx
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),

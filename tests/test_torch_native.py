@@ -128,6 +128,27 @@ def test_host_library_equal(gname, sname):
     np.testing.assert_array_equal(outs[0][:len(exp)], exp)
 
 
+@pytest.mark.parametrize("bounds", [None, [0, 40, 41, 180, 300]])
+@pytest.mark.parametrize("window,maxref", [(0, 3), (3, 1), (7, 3)])
+def test_select_refs_equal(bounds, window, maxref):
+    """The greedy reference selection over random cost matrices with
+    unavailable entries (< 0), empty lists and window resets at the chunk
+    bounds."""
+    rng = np.random.default_rng(window * 10 + maxref)
+    n = 300
+    costs = rng.integers(-2, 60, size=(n, window + 1))
+    outd = rng.integers(0, 4, size=n)
+    cb = np.asarray([0, n] if bounds is None else bounds, dtype=np.int64)
+    got = PN.select_refs(costs, outd, window, maxref, cb)
+    exp = JN.select_refs(costs, outd, window, maxref, cb)
+    for a, b in zip(got, exp):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert (got[0][outd == 0] == 0).all() and (got[1] <= maxref).all()
+    with pytest.raises(ValueError):
+        PN.select_refs(costs[:, :window], outd, window, maxref, cb)
+
+
 def test_jax_settings_drive_the_port_library():
     """The port's functions take any object with the settings' fields."""
     co, su = _csr(erdos_renyi(120, 0.08, seed=2))

@@ -20,7 +20,8 @@ Host pieces: ``load`` (the stream as an array or a memmap, the offsets from
 a fresh ``.obl`` or from the ``.offsets`` gap stream), random access and
 sequential scans (the scalar oracle), the sliced native scan
 ``iter_csr_slices``, and ``store`` (the native encoder, its streaming form
-for sequential sources, or the ``"python"`` oracle ``_Encoder``).
+for sequential sources, the ``"python"`` oracle ``_Encoder``, or the device
+encoder of ``ops/vencode.py`` with ``backend="cuda"``).
 
 The device entry :meth:`BVGraph.to_device` takes the files to a
 ``CSRGraph``: a cold ``plan_kernel_decode`` -> ``resolve_halos`` ->
@@ -491,21 +492,27 @@ class BVGraph(ImmutableGraph):
               min_interval_length: int = -1, zeta_k: int = -1,
               settings: Optional[BVGraphSettings] = None,
               comment: str = "BVGraph properties",
-              backend: str = "auto", num_threads: int = 0) -> Dict[str, str]:
+              backend: str = "auto", num_threads: int = 0,
+              device=None, report: Optional[dict] = None) -> Dict[str, str]:
         """Compress ``graph`` to ``basename.{graph,offsets,properties}``.
 
-        ``graph``: a ``CSRGraph`` on any device (its arrays brought to the
-        host once, as int64) or any graph with ``iter_nodes``.  The encoder
-        follows the reference (CompressionThread.call + diffComp,
-        BVGraph.java:1977-2328): greedy reference selection over the window
-        by sizing every candidate, strict improvement, first minimum wins.
+        ``graph``: a ``CSRGraph`` on any device or any graph with
+        ``iter_nodes``.  The encoder follows the reference
+        (CompressionThread.call + diffComp, BVGraph.java:1977-2328): greedy
+        reference selection over the window by sizing every candidate,
+        strict improvement, first minimum wins.
 
         ``backend``: "native" (or "auto") is the multithreaded C++ encoder
-        for a ``CSRGraph`` (per-thread window resets and bit-exact stream
-        concatenation, BVGraph.java:2373-2483) and the streaming encoder
-        for other graphs; "python" is the single-stream oracle.
-        ``num_threads``: 0 = the reference heuristic (#cores, at least
-        100,000 nodes per thread, BVGraph.java:2382-2386).
+        for a ``CSRGraph``, its arrays brought to the host once as int64
+        (per-thread window resets and bit-exact stream concatenation,
+        BVGraph.java:2373-2483), and the streaming encoder for other
+        graphs; "python" is the single-stream oracle; "cuda" is the device
+        encoder (``ops/vencode.py``), single-stream and byte-identical to
+        "python", on ``device`` (the card when None; "cpu" runs the same
+        torch ops there).  ``num_threads``: 0 = the reference heuristic
+        (#cores, at least 100,000 nodes per thread, BVGraph.java:2382-2386).
+        ``report``: with "cuda", a dict to fill with the seconds of each
+        stage of the encode (each ends in a synchronise) and its chunks.
         """
         s = settings or BVGraphSettings()
         if window_size >= 0:
@@ -518,6 +525,8 @@ class BVGraph(ImmutableGraph):
             s = replace(s, zeta_k=zeta_k)
         if backend in ("auto", "native"):
             return cls._store_native(graph, basename, s, comment, num_threads)
+        if backend == "cuda":
+            return cls._store_cuda(graph, basename, s, comment, device, report)
         if backend != "python":
             raise ValueError(f"unknown backend {backend!r}")
 
@@ -586,6 +595,47 @@ class BVGraph(ImmutableGraph):
                      else np.zeros(0, np.int64))
         return _finish_native(basename, s, comment, enc.nodes, enc.finish())
 
+    @classmethod
+    def _store_cuda(cls, graph, basename: str, s: BVGraphSettings,
+                    comment: str, device, report: Optional[dict]
+                    ) -> Dict[str, str]:
+        """Device encode (``ops/vencode.py``): chunked cost matrices ->
+        one native greedy selection over the cost matrix copied to the
+        host -> token packing on the device, bit-exact chunk concatenation
+        -> the offsets packed on the device.  A ``CSRGraph`` already on the
+        device stays there: only the stream, the cost matrix and the
+        offsets come to the host.  Byte-identical to the single-stream
+        encoders."""
+        from ..ops import vencode
+        if not vencode.supported(s):
+            raise ValueError("the cuda backend does not support this coding "
+                             "combination; use backend='native'")
+        dev = require_cuda() if device is None else torch.device(device)
+        if isinstance(graph, CSRGraph):
+            co, su = graph.offsets.to(dev), graph.succ.to(dev)
+        else:
+            co_h, su_h = host_csr(graph)
+            if len(su_h) and int(su_h.max()) >= 1 << 31:
+                raise ValueError("the cuda backend needs int32 node ids; "
+                                 "use backend='native' beyond 2^31")
+            co = torch.from_numpy(co_h).to(dev)
+            su = torch.from_numpy(su_h).to(dev, torch.int32)
+        n = co.numel() - 1
+        split = {} if report is not None else None
+        graph_b, gbits, starts, st = vencode.encode_csr_chunked(
+            co, su, s, split=split)
+        t0 = time.perf_counter()
+        offs_b, _obits = vencode.offsets_stream(starts, gbits, s)
+        t1 = time.perf_counter()
+        _write(basename + GRAPH_EXTENSION, graph_b)
+        _write(basename + OFFSETS_EXTENSION, offs_b)
+        props = _properties(s, n, gbits, st)
+        javaprops.dump(props, basename + PROPERTIES_EXTENSION, comment)
+        if report is not None:
+            report.update(split, offsets_s=t1 - t0,
+                          write_s=time.perf_counter() - t1)
+        return props
+
     def write_outdegrees(self, path: str) -> None:
         """Dump the gamma-coded outdegree stream (BVGraph.main -d)."""
         w = BitWriter()
@@ -606,6 +656,15 @@ def _finish_native(basename: str, s: BVGraphSettings, comment: str, n: int,
     graph_b, gbits, offs_b, _obits, st = out
     _write(basename + GRAPH_EXTENSION, graph_b.tobytes())
     _write(basename + OFFSETS_EXTENSION, offs_b.tobytes())
+    props = _properties(s, n, gbits, st)
+    javaprops.dump(props, basename + PROPERTIES_EXTENSION, comment)
+    return props
+
+
+def _properties(s: BVGraphSettings, n: int, gbits: int,
+                st) -> Dict[str, str]:
+    """The properties of an encode from its ``native.STAT_WORDS`` stats
+    words (the native and the device encoders' layout)."""
     enc = _Encoder(s)
     enc.tot_links = int(st[0] + st[1] + st[2])
     (enc.copied_arcs, enc.intervalised_arcs, enc.residual_arcs,
@@ -614,9 +673,7 @@ def _finish_native(basename: str, s: BVGraphSettings, comment: str, n: int,
      enc.bits_for_intervals, enc.bits_for_residuals) = map(int, st[:10])
     enc.successor_gap_stats = [int(v) for v in st[10:74]]
     enc.residual_gap_stats = [int(v) for v in st[74:138]]
-    props = enc.build_properties(n, int(gbits))
-    javaprops.dump(props, basename + PROPERTIES_EXTENSION, comment)
-    return props
+    return enc.build_properties(n, int(gbits))
 
 
 _EMPTY = np.zeros(0, dtype=np.int64)

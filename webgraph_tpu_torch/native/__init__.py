@@ -5,7 +5,8 @@ The library is built with g++ for the host it runs on, on first use, into
 committed.  It is the port's own copy of what it needs of the JAX package's
 host library, with the same functions and results: the offsets index, the
 outdegree scan, the sequential decoder, the batched range decoder, the
-header-only reference scan and the parallel encoder.
+header-only reference scan, the parallel and streaming encoders, and the
+device encoder's greedy reference selection.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 
 __all__ = ["decode_offset_stream", "decode_outdegrees",
            "bv_decode_all", "bv_decode_range", "bv_encode", "bv_scan_refs",
-           "bv_fill_ranges", "StreamEncoder", "lib_path"]
+           "bv_fill_ranges", "select_refs", "StreamEncoder", "lib_path"]
 
 #: stats words returned by bv_encode: copied, intervalised, residual arcs;
 #: tot_ref, tot_dist; bits for outdegrees/references/blocks/intervals/
@@ -38,7 +39,7 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         for fn in ("wg_bv_decode_all", "wg_bv_decode_range", "wg_bv_encode",
                    "wg_bv_fill_ranges", "wg_bv_scan_refs", "wg_enc_push",
-                   "wg_enc_finish"):
+                   "wg_enc_finish", "wg_select_refs"):
             getattr(lib, fn).restype = ctypes.c_int64
         lib.wg_enc_new.restype = ctypes.c_void_p
         lib.wg_enc_free.restype = None
@@ -256,6 +257,36 @@ def bv_encode(csr_off: np.ndarray, succ: np.ndarray, settings,
         lib.wg_buffer_free(g_ptr)
         lib.wg_buffer_free(o_ptr)
     return graph, g_bits.value, offs, o_bits.value, stats
+
+
+def select_refs(costs: np.ndarray, outd: np.ndarray, window_size: int,
+                max_ref_count: int, chunk_bounds: np.ndarray):
+    """Greedy reference selection over a precomputed cost matrix
+    (wg_select_refs; exactly BVGraph.java:2256-2270 semantics, the one
+    sequential step of the device encoder).  Returns (refs, ref_counts):
+    winner window distance and reference-chain depth per node."""
+    lib = _load()
+    costs = np.ascontiguousarray(costs, dtype=np.int64)
+    outd = np.ascontiguousarray(outd, dtype=np.int64)
+    chunk_bounds = np.ascontiguousarray(chunk_bounds, dtype=np.int64)
+    n = len(outd)
+    if costs.shape != (n, window_size + 1):
+        raise ValueError(f"costs must be ({n}, {window_size + 1}), got "
+                         f"{costs.shape}")
+    if len(chunk_bounds) < 1 or chunk_bounds[0] != 0 or chunk_bounds[-1] != n \
+            or (np.diff(chunk_bounds) < 0).any():
+        raise ValueError("chunk_bounds must rise from 0 to n")
+    refs = np.zeros(n, dtype=np.int32)
+    rcs = np.zeros(n, dtype=np.int32)
+    rc = lib.wg_select_refs(
+        _ptr(costs, ctypes.c_int64), _ptr(outd, ctypes.c_int64),
+        ctypes.c_int64(n), ctypes.c_int(window_size),
+        ctypes.c_int(max_ref_count), _ptr(chunk_bounds, ctypes.c_int64),
+        ctypes.c_int64(len(chunk_bounds) - 1), _ptr(refs, ctypes.c_int32),
+        _ptr(rcs, ctypes.c_int32))
+    if rc < 0:
+        raise RuntimeError(f"select_refs failed: {rc}")
+    return refs, rcs
 
 
 def _take(lib, ptr, bits: int) -> np.ndarray:

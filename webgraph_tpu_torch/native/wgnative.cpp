@@ -1120,4 +1120,56 @@ int64_t wg_bv_scan_refs(const uint8_t* data, int64_t len_bytes,
     return 0;
 }
 
+// ------------------------------------------------------------------------
+// Greedy reference selection over a precomputed candidate-cost matrix —
+// the only sequential step of the vectorized encoder (ops/vencode.py).
+// Exactly BVGraph.java:2256-2270 / Encoder::encode_node semantics: iterate
+// ref = 0..window, candidate eligible when its window slot holds a nonempty
+// list AND its reference chain is shorter than max_ref_count; strict <
+// improvement, first minimum wins.  Window resets at each chunk bound
+// (per-thread semantics, BVGraph.java:2406).  costs[x*(W+1)+r] is the
+// diff_comp bit count (< 0 marks r unavailable).  Writes refs[x] in [0, W]
+// and (when rc_out != null) the per-node reference-chain depth (the
+// encoder's ref_count; feeds the avgref stat).  Returns 0.
+int64_t wg_select_refs(const int64_t* costs, const int64_t* outd, int64_t n,
+                       int window_size, int max_ref_count,
+                       const int64_t* chunk_bounds, int64_t n_chunks,
+                       int32_t* refs, int32_t* rc_out) {
+    const int cyclic = window_size + 1;
+    std::vector<int> rc((size_t)cyclic, 0);
+    std::vector<int64_t> wlen((size_t)cyclic, 0);
+    for (int64_t c = 0; c < n_chunks; c++) {
+        std::fill(wlen.begin(), wlen.end(), 0);
+        for (int64_t x = chunk_bounds[c]; x < chunk_bounds[c + 1]; x++) {
+            const int slot = (int)(x % cyclic);
+            wlen[(size_t)slot] = outd[x];
+            refs[x] = 0;
+            if (outd[x] == 0) {
+                if (rc_out) rc_out[x] = 0;
+                continue;
+            }
+            rc[(size_t)slot] = -1;
+            int64_t best = -1;
+            int best_slot = slot;
+            int best_r = 0;
+            for (int r = 0; r < cyclic; r++) {
+                const int cand = (int)(((x - r) % cyclic + cyclic) % cyclic);
+                const int64_t cost = costs[x * cyclic + r];
+                if (rc[(size_t)cand] < max_ref_count &&
+                    wlen[(size_t)cand] != 0 && cost >= 0) {
+                    if (best < 0 || cost < best) {
+                        best = cost;
+                        best_slot = cand;
+                        best_r = r;
+                    }
+                }
+            }
+            rc[(size_t)slot] = rc[(size_t)best_slot] + 1;
+            refs[x] = (int32_t)best_r;
+            if (rc_out) rc_out[x] = (int32_t)rc[(size_t)slot];
+        }
+    }
+    return 0;
+}
+
 }  // extern "C"
