@@ -96,6 +96,7 @@ Usage: ``python3 chip_smoke.py``; it needs one CUDA device.
 
 from __future__ import annotations
 
+import hashlib
 import importlib
 import json
 import os
@@ -116,6 +117,7 @@ from webgraph_tpu_torch.settings import BVGraphSettings  # noqa: E402
 from webgraph_tpu_torch.settings import CompressionFlags as C  # noqa: E402
 from webgraph_tpu_torch.utils.synth import synthesize_webgraph  # noqa: E402
 from webgraph_tpu_torch import algo as A  # noqa: E402
+from webgraph_tpu_torch import labelling as LB  # noqa: E402
 from webgraph_tpu_torch import transform as TR  # noqa: E402
 from webgraph_tpu_torch.algo import centrality as CE  # noqa: E402
 from webgraph_tpu_torch.algo import hyperball as HB  # noqa: E402
@@ -123,6 +125,7 @@ from webgraph_tpu_torch.codecs.bvgraph import BVGraph  # noqa: E402
 from webgraph_tpu_torch.codecs.efgraph import EFGraph  # noqa: E402
 from webgraph_tpu_torch.core.graph import CSRGraph, expand_ranges  # noqa
 from webgraph_tpu_torch.core.graph import load_csr  # noqa: E402
+from webgraph_tpu_torch.labelling.graph import filter_labelled  # noqa
 from webgraph_tpu_torch.utils.stats import compute_stats  # noqa: E402
 from webgraph_tpu_torch.experiments import common as PC  # noqa: E402
 from webgraph_tpu_torch.ops import _build, kcompact, kdecode, kplan  # noqa
@@ -169,6 +172,13 @@ CENTRALITY_CHECKED = 4
 # merged on the host by a per-node heap) cut into this many batches or more
 OFFLINE_NODES = 1_000_000
 OFFLINE_BATCHES = 5
+# the labels phase: the geometric distribution of the gamma-coded labels
+# (P(v) = p (1 - p)**v, mean 4), the fixed labels its filter keeps, the
+# subgraph the labelled compose joins, and the nodes checked on the host
+LABEL_GEOMETRIC_P = 0.2
+LABEL_KEEP_BELOW = 500
+COMPOSE_NODES = 100_000
+COMPOSE_SAMPLE = 300
 
 
 def emit(tag: str, obj) -> None:
@@ -755,6 +765,9 @@ def phase_encode(dev, card: str, graph, hco, hsu) -> dict:
                 nat + ".properties"):
             raise AssertionError("the device encode's properties differ")
         out["byte_identical_to_native_1thread"] = True
+        # what the labels phase's stores are held to
+        out["slice_digest"] = {ext: _sha256(base + ext)
+                               for ext in (".graph", ".offsets")}
         out["slice"].update(_read_back(base, graph, "slice"))
         cm_bytes = graph.num_nodes * (s.window_size + 1) * 8
         out["cost_matrix_bytes"] = cm_bytes
@@ -828,6 +841,296 @@ def phase_encode(dev, card: str, graph, hco, hsu) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return out
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _timed(fn) -> tuple:
+    """(``fn()``, its seconds on the host clock ending in a synchronise,
+    the peak device bytes above what was resident when it started)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - resident)
+
+
+def fixed_fields_numpy(data: np.ndarray, m: int, w: int) -> np.ndarray:
+    """The m ``w``-bit (w <= 16) MSB-first fields at bits 0, w, 2w, ...
+    of a byte stream, in numpy on the host (independent of the port's
+    codec): a 24-bit window from each field's first byte."""
+    d = np.concatenate([data, np.zeros(4, np.uint8)])
+    out = np.empty(m, dtype=np.int64)
+    for a in range(0, m, 1 << 25):
+        b = min(a + (1 << 25), m)
+        p = np.arange(a, b, dtype=np.int64) * w
+        at = p >> 3
+        win = ((d[at].astype(np.int64) << 16) | (d[at + 1].astype(np.int64)
+                                                  << 8) | d[at + 2])
+        out[a:b] = (win >> (24 - (p & 7) - w)) & ((1 << w) - 1)
+    return out
+
+
+def gamma_bits_numpy(v: np.ndarray) -> np.ndarray:
+    """Length of each value's gamma code, 2 floor(log2(v + 1)) + 1 (exact
+    for v + 1 below 2**50)."""
+    return 2 * np.floor(np.log2(v.astype(np.float64) + 1)).astype(
+        np.int64) + 1
+
+
+def _arc_keys(g) -> torch.Tensor:
+    """``(src << 32) | tgt`` of every arc, sorted (a CSR's order)."""
+    return (arc_sources(g) << 32) | g.succ.to(torch.int64)
+
+
+def _label_at(keys: torch.Tensor, values: torch.Tensor,
+              want: torch.Tensor) -> tuple:
+    """(found, label) of the arcs with keys ``want`` in a graph with
+    sorted ``keys`` and labels ``values``."""
+    pos = torch.searchsorted(keys, want).clamp(max=max(keys.numel() - 1, 0))
+    found = keys[pos] == want
+    return found, torch.where(found, values[pos], 0)
+
+
+def _store_and_load_labels(name: str, graph, proto, vals, tmp: str,
+                           digest: dict, hco) -> dict:
+    """One label type through ``store_labelled(backend="cuda")``, the
+    independent host decodes, and ``to_device``."""
+    n, m = graph.num_nodes, graph.num_arcs
+    base = os.path.join(tmp, name)
+    lbase = base + "-labels"
+    rep = {}
+    _, store_s, store_peak = _timed(lambda: BVGraph.store_labelled(
+        LB.ArcLabelledGraph(graph, vals, proto), base, lbase,
+        backend="cuda", report=rep))
+    for ext in (".graph", ".offsets"):
+        if _sha256(base + ext) != digest[ext]:
+            raise AssertionError(f"labels {name}: the labelled store's {ext} "
+                                 f"differs from the encode phase's")
+    # the files decoded on the host, independently of the device pack
+    t0 = time.perf_counter()
+    data = np.fromfile(lbase + ".labels", dtype=np.uint8)
+    lo = native.decode_offset_stream(
+        np.fromfile(lbase + ".labeloffsets", dtype=np.uint8), n, C.GAMMA)
+    want = vals.cpu().numpy()
+    if isinstance(proto, LB.FixedWidthIntLabel):
+        got = fixed_fields_numpy(data, m, proto.width)
+        bits = np.full(m, proto.width, dtype=np.int64)
+    else:
+        got = np.diff(native.decode_offset_stream(data, m - 1, C.GAMMA),
+                      prepend=0)
+        bits = gamma_bits_numpy(want)
+    ends = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(bits, out=ends[1:])
+    if not np.array_equal(got, want):
+        bad = np.flatnonzero(got != want)
+        raise AssertionError(f"labels {name}: the host decode differs at "
+                             f"{len(bad)} arcs, first {bad[:5]}")
+    if not np.array_equal(lo, ends[hco]):
+        raise AssertionError(f"labels {name}: .labeloffsets differs")
+    host_check_s = time.perf_counter() - t0
+    del data, got, bits, ends, want
+    # back to the card, launch counts reset just before
+    _build.reset_launches()
+    back, load_s, load_peak = _timed(
+        lambda: LB.BitStreamArcLabelledGraph.load(lbase).to_device())
+    launches = {k: _build.LAUNCHES[k] for k in KERNELS}
+    if back.report["graph"]["route"] != "kernel":
+        raise AssertionError(f"labels {name}: to_device took the "
+                             f"{back.report['graph']['route']} route")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"labels {name}: to_device never launched "
+                                 f"{k}")
+    _same_csr(back.graph, graph, f"labels {name}")
+    if not torch.equal(back.values, vals):
+        raise AssertionError(f"labels {name}: to_device's labels differ")
+    labels_bytes = os.path.getsize(lbase + ".labels")
+    return dict(
+        spec=proto.to_spec(), store_s=store_s, graph_encode_s=rep["graph_s"],
+        label_pack_s=rep["labels_s"], label_pack_split=rep["labels_split"],
+        store_peak_above_resident=store_peak, labels_bytes=labels_bytes,
+        labeloffsets_bytes=os.path.getsize(lbase + ".labeloffsets"),
+        bits_per_label=int(lo[-1]) / m, host_check_s=host_check_s,
+        load_s=load_s, load_peak_above_resident=load_peak,
+        graph_decode=back.report["graph"], label_decode_s=back.report[
+            "labels_s"], label_decode_split=back.report["labels_split"],
+        launches=launches, graph_files_equal_encode=True,
+        host_decodes_equal=True, to_device_equal=True)
+
+
+def phase_labels(dev, card: str, graph, hco, hsu, digest: dict) -> dict:
+    """Arc labels at the slice's scale: two label types stored with the
+    graph on the card and read back; the labelled combinators and SCC on
+    the labelled slice; the labelled offline transforms at
+    ``OFFLINE_NODES`` and the labelled compose at ``COMPOSE_NODES``.  The
+    directory and every graph made here are freed at the end."""
+    n, m = graph.num_nodes, graph.num_arcs
+    t_phase = time.perf_counter()
+    out = dict(card=card, nodes=n, arcs=m)
+    tmp = tempfile.mkdtemp(prefix=".labels_smoke_", dir=ROOT)
+    try:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(8)
+        src = arc_sources(graph)
+        fixed = (src * 7 + graph.succ.to(torch.int64)) % 1000
+        del src
+        gamma = torch.empty(m, dtype=torch.float64, device=dev).geometric_(
+            LABEL_GEOMETRIC_P, generator=gen).to(torch.int64) - 1
+        for name, proto, vals in (
+                ("fixed10", LB.FixedWidthIntLabel("W", 10), fixed),
+                ("gamma", LB.GammaCodedIntLabel("W"), gamma)):
+            out[name] = _store_and_load_labels(name, graph, proto, vals, tmp,
+                                               digest, hco)
+        out["gamma"]["max_value"] = int(gamma.max())
+        del gamma
+        torch.cuda.empty_cache()
+
+        # the combinators and SCC on the labelled slice
+        g = LB.ArcLabelledGraph(graph, fixed, LB.FixedWidthIntLabel("W", 10))
+        pred = LB.integer_label_filter(*range(LABEL_KEEP_BELOW))
+        mask = fixed < LABEL_KEEP_BELOW
+        steps = {}
+        kept, s, p = _timed(lambda: filter_labelled(g, pred))
+        steps["filter_labelled"] = dict(seconds=s, peak_above_resident=p,
+                                        kept_arcs=kept.num_arcs)
+        want = TR.filter_arcs(graph, lambda a, b: mask)
+        _same_csr(kept.graph, want, "filter_labelled")
+        if not torch.equal(kept.values, fixed[mask]):
+            raise AssertionError("filter_labelled: the labels kept differ")
+        del kept
+        info = {}
+        (k, comp), s, p = _timed(
+            lambda: A.strongly_connected_components_labelled(g, pred,
+                                                             stats=info))
+        steps["scc_labelled"] = dict(seconds=s, peak_above_resident=p,
+                                     components=k, **info)
+        kw, compw = A.strongly_connected_components(want)
+        if k != kw or not torch.equal(comp, compw):
+            raise AssertionError("scc_labelled differs from the SCC of "
+                                 "filter_arcs on the same mask")
+        del comp, compw, want, mask
+        r, s, p = _timed(lambda: LB.relabel(
+            g, lambda v, a, b: 2 * v + 1, LB.GammaCodedIntLabel("W")))
+        steps["relabel"] = dict(seconds=s, peak_above_resident=p)
+        if not torch.equal(r.values, 2 * fixed + 1):
+            raise AssertionError("relabel: labels differ from 2 v + 1")
+        u, s, p = _timed(lambda: LB.union_labelled(g, r,
+                                                   lambda a, b: a + b))
+        steps["union_labelled"] = dict(seconds=s, peak_above_resident=p)
+        _same_csr(u.graph, graph, "union_labelled")
+        if not torch.equal(u.values, 3 * fixed + 1):
+            raise AssertionError("union_labelled: labels differ from "
+                                 "v + (2 v + 1)")
+        del u, r, g, fixed
+        torch.cuda.empty_cache()
+        out["full_scale"] = steps
+        out["offline"] = _labels_offline(dev, gen, tmp)
+        out["compose"] = _labels_compose(dev, gen)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _labels_offline(dev, gen, tmp: str) -> dict:
+    """The labelled offline transforms at ``OFFLINE_NODES``: transpose
+    twice (the identity), symmetrize with a sum merge (pair by pair
+    against the forward and reverse labels), each merged in bulk."""
+    co, su = synthesize_webgraph(OFFLINE_NODES, seed=1)
+    small = CSRGraph(co, su, device=dev)
+    del co, su
+    m = small.num_arcs
+    sv = torch.randint(0, 1 << 20, (m,), generator=gen, device=dev)
+    sg = LB.ArcLabelledGraph(small, sv, LB.GammaCodedIntLabel("W"))
+    batch = -(-m // OFFLINE_BATCHES)
+    res = dict(nodes=small.num_nodes, arcs=m, batch_size=batch)
+    bt, batch_s, _ = _timed(lambda: TR.transpose_offline_labelled(
+        sg, batch_size=batch, temp_dir=tmp))
+    once, merge_s, merge_peak = _timed(bt.to_arc_labelled)
+    nb = len(bt.batches)
+    bt.cleanup()
+    if nb < 4:
+        raise AssertionError(f"labelled offline transpose: {nb} batches")
+    _same_csr(once.graph, TR.transpose(small), "labelled offline transpose")
+    bt2 = TR.transpose_offline_labelled(once, batch_size=batch, temp_dir=tmp)
+    twice = bt2.to_arc_labelled()
+    bt2.cleanup()
+    if not twice.equals_labelled(sg):
+        raise AssertionError("labelled offline transpose twice is not the "
+                             "identity")
+    res["transpose"] = dict(batches=nb, batch_s=batch_s, merge_s=merge_s,
+                            merge_peak_above_resident=merge_peak)
+    del once, twice
+    bs, batch_s, _ = _timed(lambda: TR.symmetrize_offline_labelled(
+        sg, merge=lambda a, b: a + b, batch_size=2 * batch, temp_dir=tmp))
+    sym, merge_s, merge_peak = _timed(bs.to_arc_labelled)
+    nb, spilled = len(bs.batches), bs.num_arcs
+    bs.cleanup()
+    if nb < 4 or spilled != 2 * m:
+        raise AssertionError(f"labelled offline symmetrize: {nb} batches, "
+                             f"{spilled} pairs spilled")
+    _same_csr(sym.graph, TR.symmetrize(small), "labelled offline symmetrize")
+    keys = _arc_keys(small)
+    x = arc_sources(sym.graph)
+    y = sym.graph.succ.to(torch.int64)
+    fa, a = _label_at(keys, sv, (x << 32) | y)
+    fb, b = _label_at(keys, sv, (y << 32) | x)
+    if not (bool((fa | fb).all()) and torch.equal(sym.values, a + b)):
+        raise AssertionError("labelled offline symmetrize: a label is not "
+                             "the sum of its forward and reverse labels")
+    res["symmetrize"] = dict(batches=nb, arcs=sym.num_arcs,
+                             pairs_spilled=spilled, batch_s=batch_s,
+                             merge_s=merge_s,
+                             merge_peak_above_resident=merge_peak,
+                             reciprocal_or_loop_arcs=int((fa & fb).sum()))
+    return res
+
+
+def _labels_compose(dev, gen) -> dict:
+    """``compose_labelled`` of the first ``COMPOSE_NODES`` nodes of the
+    offline synthetic with itself under (min, +); sampled nodes checked
+    against a join on the host."""
+    co, su = synthesize_webgraph(OFFLINE_NODES, seed=1)
+    K = COMPOSE_NODES
+    sub = TR.filter_arcs(CSRGraph(co, su, device=dev).to_csr(0, K),
+                         lambda a, b: b < K)
+    del co, su
+    lv = torch.randint(0, 1000, (sub.num_arcs,), generator=gen, device=dev)
+    g = LB.ArcLabelledGraph(sub, lv, LB.GammaCodedIntLabel("W"))
+    sr = LB.LabelSemiring("amin", lambda a, b: a + b, 1 << 30, 0)
+    c, secs, peak = _timed(lambda: TR.compose_labelled(g, g, sr))
+    co_h, su_h = sub.offsets.cpu().numpy(), sub.succ.cpu().numpy()
+    lv_h = lv.cpu().numpy()
+    cco, csu = c.graph.offsets.cpu().numpy(), c.graph.succ.cpu().numpy()
+    cv = c.values.cpu().numpy()
+    rng = np.random.default_rng(9)
+    for x in rng.choice(K, COMPOSE_SAMPLE, replace=False):
+        best = {}
+        for i in range(co_h[x], co_h[x + 1]):
+            y = su_h[i]
+            for j in range(co_h[y], co_h[y + 1]):
+                z, v = int(su_h[j]), int(lv_h[i] + lv_h[j])
+                best[z] = min(best.get(z, v), v)
+        zs = sorted(best)
+        if (csu[cco[x]:cco[x + 1]].tolist() != zs
+                or cv[cco[x]:cco[x + 1]].tolist() != [best[z] for z in zs]):
+            raise AssertionError(f"compose_labelled: node {x} differs from "
+                                 f"the host join")
+    return dict(nodes=K, arcs=sub.num_arcs, paths=int(
+        sub.outdegrees()[sub.succ.to(torch.int64)].sum()),
+        arcs_out=c.num_arcs, seconds=secs, peak_above_resident=peak,
+        sampled_nodes=COMPOSE_SAMPLE)
 
 
 def _pack_profile(graph, s) -> dict:
@@ -1166,6 +1469,8 @@ def main() -> int:
     enc.update(seconds=time.perf_counter() - t0,
                files_native_8thread_store_s=files["store_s"]["BVGraph"])
     emit("encode", enc)
+    emit("labels", phase_labels(dev, card, **ctx,
+                                digest=enc["slice_digest"]))
     emit("analytics", phase_analytics(dev, **ctx))
     del ctx
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),

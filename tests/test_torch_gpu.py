@@ -475,3 +475,87 @@ def test_offline_transforms_on_card_match_cpu(cuda, tmp_path, fn):
     assert len(bg.batches) >= 4 and bg.num_arcs == bc.num_arcs
     for a, b in zip(_batch_lists(bc), _batch_lists(bg)):
         np.testing.assert_array_equal(a, b)
+
+
+# -- labelling on the card against the CPU -----------------------------------
+
+
+def _labelled_pair(cuda, kind):
+    """One labelled graph, on the CPU and on the card: scalar labels, or
+    63-bit list labels holding 2**63 - 1 and empty lists."""
+    from webgraph_tpu_torch import labelling as L
+    from webgraph_tpu_torch.core.graph import CSRGraph
+    co, su = E.simple(*synthesize_webgraph(5000, seed=13))
+    m = len(su)
+    rng = np.random.default_rng(5)
+    if kind == "long63":
+        counts = torch.from_numpy(rng.integers(0, 4, m))
+        entries = torch.from_numpy(rng.integers(0, 1 << 62, int(counts.sum())))
+        entries[::5] = (1 << 63) - 1
+        proto, vals = L.FixedWidthLongListLabel("L", 63), (counts, entries)
+    elif kind == "fixed10":
+        proto = L.FixedWidthIntLabel("W", 10)
+        vals = torch.from_numpy(rng.integers(0, 1000, m))
+    else:
+        proto = L.GammaCodedIntLabel("W")
+        vals = torch.from_numpy(rng.geometric(0.2, m) - 1)
+        vals[::11] = (1 << 31) - 1
+    out = []
+    for dev in ("cpu", cuda):
+        g = CSRGraph(co, su, device=dev)
+        v = (tuple(x.to(dev) for x in vals) if isinstance(vals, tuple)
+             else vals.to(dev))
+        out.append(L.ArcLabelledGraph(g, v, proto))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["fixed10", "gamma", "long63"])
+def test_label_codec_on_card_matches_cpu(cuda, kind):
+    """The label pack on the card gives the CPU's bytes; the unpack on the
+    card gives the values back."""
+    from webgraph_tpu_torch.ops import labelcodec
+    cpu_g, card_g = _labelled_pair(cuda, kind)
+    a = labelcodec.pack_labels(cpu_g.values, cpu_g.graph.offsets,
+                               cpu_g.prototype)
+    b = labelcodec.pack_labels(card_g.values, card_g.graph.offsets,
+                               card_g.prototype, chunk_arcs=7000)
+    assert a[:3] == b[:3] and b[3].device == card_g.device
+    lo = labelcodec.gamma_prefix_sums(np.frombuffer(a[2], np.uint8),
+                                      cpu_g.num_nodes + 1)
+    got = labelcodec.unpack_labels(np.frombuffer(b[0], np.uint8), lo,
+                                   card_g.graph.offsets, card_g.prototype)
+    torch.cuda.synchronize()
+    if kind == "long63":
+        assert all(torch.equal(x, y) for x, y in zip(got, card_g.values))
+    else:
+        assert got.device == card_g.device and torch.equal(got,
+                                                           card_g.values)
+
+
+@pytest.mark.parametrize("kind", ["fixed10", "gamma"])
+def test_store_labelled_cuda_on_card_matches_host(cuda, tmp_path, kind):
+    """``store_labelled(backend="cuda")`` on the card writes the host
+    stores' bytes (native and the fused pass); ``to_device`` reads them
+    back to the card through B1 and B2, equal."""
+    from webgraph_tpu_torch import labelling as L
+    from webgraph_tpu_torch.codecs.bvgraph import BVGraph
+    cpu_g, card_g = _labelled_pair(cuda, kind)
+    bases = {}
+    for backend, g in (("cuda", card_g), ("native", cpu_g),
+                       ("python", cpu_g)):
+        (tmp_path / backend).mkdir()
+        bases[backend] = str(tmp_path / backend / "g")
+        BVGraph.store_labelled(g, bases[backend], backend=backend)
+    for other in ("native", "python"):
+        for ext in (".graph", ".offsets", "-labelled.labels",
+                    "-labelled.labeloffsets"):
+            with open(bases["cuda"] + ext, "rb") as f, \
+                    open(bases[other] + ext, "rb") as h:
+                assert f.read() == h.read(), (other, ext)
+    before = dict(_build.LAUNCHES)
+    back = L.BitStreamArcLabelledGraph.load(
+        bases["cuda"] + "-labelled").to_device()
+    torch.cuda.synchronize()
+    for k in ("bv_decode_lanes", "compact_runs"):
+        assert _build.LAUNCHES[k] > before[k]
+    assert back.device == card_g.device and back.equals_labelled(card_g)

@@ -65,14 +65,15 @@ def test_importing_the_port_loads_no_jax():
         "pre = 'jax' in sys.modules or 'webgraph_tpu' in sys.modules\n"
         "import webgraph_tpu_torch, webgraph_tpu_torch.state\n"
         "from webgraph_tpu_torch.ops import (_build, bitio, bitstream, csr, "
-        "ef_index, efdecode, kcompact, kdecode, kplan, longword, resolve, "
-        "vencode)\n"
+        "ef_index, efdecode, kcompact, kdecode, kplan, labelcodec, longword, "
+        "resolve, vencode)\n"
+        "from webgraph_tpu_torch.labelling import graph, labels, triples\n"
         "from webgraph_tpu_torch.codecs import bvgraph, efgraph\n"
         "from webgraph_tpu_torch.utils import properties\n"
         "from webgraph_tpu_torch.algo import (bfs, cc, centrality, "
         "hyperball, scc)\n"
         "from webgraph_tpu_torch import algo, transform\n"
-        "from webgraph_tpu_torch.transform import offline\n"
+        "from webgraph_tpu_torch.transform import labelled, offline\n"
         "from webgraph_tpu_torch.core import graph\n"
         "from webgraph_tpu_torch.utils import stats\n"
         "from webgraph_tpu_torch import native, settings\n"

@@ -9,9 +9,8 @@ its own id is a pivot, and the component of a pivot is the set of nodes of
 its colour that reach it, found backwards inside the colour class.  Every
 step is a device relaxation over all arcs.  Ids are dense, in first
 appearance order over the nodes, so they equal the JAX package's.
-
-``strongly_connected_components_labelled`` (``scc.py:147``) needs the
-labelled graph classes, which the port does not have yet.
+``strongly_connected_components_labelled`` (``scc.py:147-156``) runs it on
+the arcs a labelled filter keeps.
 """
 
 from __future__ import annotations
@@ -23,7 +22,8 @@ import torch
 from ..core.graph import CSRGraph
 from .cc import first_appearance_ids
 
-__all__ = ["strongly_connected_components", "scc_sizes", "scc_buckets"]
+__all__ = ["strongly_connected_components", "scc_sizes", "scc_buckets",
+           "strongly_connected_components_labelled"]
 
 
 def _fixpoint(step, x: torch.Tensor) -> torch.Tensor:
@@ -93,6 +93,18 @@ def strongly_connected_components(g: CSRGraph, stats: dict = None
         stats.update(count)
     comp = first_appearance_ids(comp)
     return int(comp.max()) + 1, comp
+
+
+def strongly_connected_components_labelled(g, pred, stats: dict = None
+                                           ) -> Tuple[int, torch.Tensor]:
+    """SCC of a labelled graph considering only arcs accepted by the
+    labelled arc filter ``pred(values, sources, targets)`` -> bool mask
+    (StronglyConnectedComponents.java:375): ``filter_labelled``, then
+    ``strongly_connected_components`` of what it keeps.  ``g``: an
+    ``ArcLabelledGraph`` on a device."""
+    from ..labelling.graph import filter_labelled
+    return strongly_connected_components(filter_labelled(g, pred).graph,
+                                         stats=stats)
 
 
 def scc_sizes(component: torch.Tensor) -> torch.Tensor:

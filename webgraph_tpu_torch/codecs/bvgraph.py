@@ -636,6 +636,106 @@ class BVGraph(ImmutableGraph):
                           write_s=time.perf_counter() - t1)
         return props
 
+    @classmethod
+    def store_labelled(cls, labelled, basename: str,
+                       label_basename: Optional[str] = None,
+                       settings: Optional[BVGraphSettings] = None,
+                       comment: str = "BVGraph properties",
+                       backend: str = "auto", device=None,
+                       report: Optional[dict] = None):
+        """Labelled store (BVGraph.storeLabelled, BVGraph.java:1735-1853):
+        the compressed graph and its offsets under ``basename``, the
+        ``.labels`` stream, ``.labeloffsets`` and their properties under
+        ``label_basename`` (``basename + "-labelled"`` when None), the
+        latter naming ``os.path.basename(basename)`` as the underlying
+        graph.  Byte-identical to the JAX package's fused single-pass store
+        in every backend (the graph single-stream, as the reference's
+        fused pass writes it).
+
+        ``backend``: "python" is that fused pass itself -- one scan of any
+        labelled source with ``iter_labelled`` (sequential-only ones too)
+        writes the four streams at once, label by label; "auto" and
+        "native" run the native single-stream encoder and pack the labels
+        with ``ops/labelcodec.py`` on the labels' device; "cuda" runs the
+        device encoder (``store(backend="cuda")``) and packs the labels on
+        the same device (the card when ``device`` is None), the CSR never
+        copied to the host.  A source that is not an ``ArcLabelledGraph``
+        is brought to that device (the CPU for "auto"/"native") with its
+        ``to_arc_labelled``.  ``report``: a dict to fill with the seconds
+        of the graph's encode and of the label pack, and their stages.
+
+        Returns (graph_properties, label_properties)."""
+        from ..labelling import graph as lg
+        from ..ops import labelcodec
+
+        s = settings or BVGraphSettings()
+        if label_basename is None:
+            label_basename = basename + "-labelled"
+        rep = {} if report is None else report
+        if backend == "python":
+            props, data, offs = cls._store_labelled_fused(labelled, basename,
+                                                          s, comment)
+            prototype = labelled.prototype
+        elif backend in ("auto", "native", "cuda"):
+            if device is not None:
+                dev = torch.device(device)
+            else:
+                dev = require_cuda() if backend == "cuda" else None
+            g = lg._as_arc_labelled(labelled, dev or "cpu")
+            dev = dev or g.device
+            t0 = time.perf_counter()
+            if backend == "cuda":
+                rep["graph_split"] = {}
+                props = cls._store_cuda(g.graph, basename, s, comment, dev,
+                                        rep["graph_split"])
+            else:
+                props = cls._store_native(g.graph, basename, s, comment, 1)
+            sync(dev)
+            t1 = time.perf_counter()
+            rep["labels_split"] = {}
+            data, _bits, offs, _ = labelcodec.pack_labels(
+                g.values, g.graph.offsets.to(dev), g.prototype,
+                split=rep["labels_split"])
+            rep.update(graph_s=t1 - t0, labels_s=time.perf_counter() - t1)
+            prototype = g.prototype
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
+        lab_props = lg._write_label_files(
+            label_basename, data, offs, prototype, os.path.basename(basename),
+            "BitStreamArcLabelledImmutableGraph properties")
+        return props, lab_props
+
+    @classmethod
+    def _store_labelled_fused(cls, labelled, basename: str,
+                              s: BVGraphSettings, comment: str):
+        """The JAX package's fused pass (``bvgraph.py:852-912``): per node,
+        its entry, then its labels, then its gaps in both offset streams.
+        Writes the graph files; returns (properties, labels bytes,
+        labeloffsets bytes)."""
+        enc = _Encoder(s)
+        graph_w, offsets_w, lab_w, laboffs_w = (BitWriter() for _ in range(4))
+        laboffs_w.write_gamma(0)
+        bit_offset = 0
+        lab_last = 0
+        n = 0
+        for x, succ, labs in labelled.iter_labelled():
+            n = x + 1
+            s.write_offset(offsets_w, graph_w.written_bits - bit_offset)
+            bit_offset = graph_w.written_bits
+            if isinstance(succ, torch.Tensor):
+                succ = succ.cpu()
+            enc.encode_node(graph_w, x, np.asarray(succ, dtype=np.int64))
+            for lab in labs:
+                lab.to_bitstream(lab_w, x)
+            laboffs_w.write_gamma(lab_w.written_bits - lab_last)
+            lab_last = lab_w.written_bits
+        s.write_offset(offsets_w, graph_w.written_bits - bit_offset)
+        _write(basename + GRAPH_EXTENSION, graph_w.to_bytes())
+        _write(basename + OFFSETS_EXTENSION, offsets_w.to_bytes())
+        props = enc.build_properties(n, graph_w.written_bits)
+        javaprops.dump(props, basename + PROPERTIES_EXTENSION, comment)
+        return props, lab_w.to_bytes(), laboffs_w.to_bytes()
+
     def write_outdegrees(self, path: str) -> None:
         """Dump the gamma-coded outdegree stream (BVGraph.main -d)."""
         w = BitWriter()

@@ -195,7 +195,7 @@ class CSRGraph:
 #: (64-bit) and standard (32-bit) Java class names map to the same class:
 #: the on-disk formats are identical (ImmutableGraph.java:920/:1039).
 GRAPH_CLASS_REGISTRY: Dict[str, type] = {}
-_CODECS = ("codecs.bvgraph", "codecs.efgraph")
+_CODECS = ("codecs.bvgraph", "codecs.efgraph", "labelling.graph")
 
 
 def register_graph_class(*java_names):

@@ -67,6 +67,8 @@ DEFAULT_CHUNK_ARCS = 32 << 20
 # gamma's z, delta's ((b + 1) << b) | ..., and zeta's (1 << w) | field are
 # all below 2**62, and z is exact as a float64 (below 2**53)
 _CODE_BITS = 55
+# words per chunk of the word -> byte conversion
+_BYTE_CHUNK_WORDS = 1 << 26
 
 
 def supported(settings) -> bool:
@@ -766,12 +768,18 @@ def pack_chunk(co, succ, settings, refs, node_base: int = 0,
 
 def _words_to_bytes(words: torch.Tensor, total_bits: int) -> bytes:
     """Strip the front pad and give the MSB-first byte stream, the final
-    byte padded with zeros (BitWriter.to_bytes discipline)."""
+    byte padded with zeros (BitWriter.to_bytes discipline): each word as
+    an int32 of the same bits, its bytes reversed, in chunks of words."""
     nbytes = -(-total_bits // 8)
-    w = words[_PAD_WORDS:_PAD_WORDS + -(-nbytes // 4)]
-    b = torch.stack([(w >> 24) & 255, (w >> 16) & 255, (w >> 8) & 255,
-                     w & 255], 1).to(torch.uint8).reshape(-1)
-    return b[:nbytes].cpu().numpy().tobytes()
+    nw = -(-nbytes // 4)
+    out = np.empty(4 * nw, dtype=np.uint8)
+    for a in range(0, nw, _BYTE_CHUNK_WORDS):
+        b = min(a + _BYTE_CHUNK_WORDS, nw)
+        w = words[_PAD_WORDS + a:_PAD_WORDS + b]
+        w32 = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+        out[4 * a:4 * b] = w32.view(torch.uint8).view(-1, 4).flip(1) \
+            .reshape(-1).cpu().numpy()
+    return out[:nbytes].tobytes()
 
 
 def pack_gaps(vals, coding: int, zeta_k: int = 3, device=None):

@@ -4,8 +4,8 @@ Counterpart of ``webgraph_tpu/transform/__init__.py`` (``:58-281``; the
 reference's Transform.java, SURVEY §2.6): each transform builds an arc
 array on the graph's device and hands it to ``CSRGraph.from_arcs``, one
 device sort of ``(src << 32) | tgt`` keys with ``unique`` for dedup.  The
-out-of-core forms are in ``transform/offline.py``; the labelled ones are not
-ported yet (ROADMAP A15).
+out-of-core forms are in ``transform/offline.py``, the labelled ones and the
+labelled composition in ``transform/labelled.py``.
 
 API (Transform.java):
   transpose / transpose_offline          (:1058-1144)
@@ -358,3 +358,15 @@ from .offline import (  # noqa: E402
 
 __all__ += ["BatchGraph", "map_offline_batched", "process_batch",
             "symmetrize_offline", "simplify_offline", "transpose_offline"]
+
+from .labelled import (  # noqa: E402
+    LabelledBatchGraph,
+    compose_labelled,
+    process_labelled_batch,
+    symmetrize_offline_labelled,
+    transpose_offline_labelled,
+)
+
+__all__ += ["LabelledBatchGraph", "compose_labelled",
+            "process_labelled_batch", "symmetrize_offline_labelled",
+            "transpose_offline_labelled"]

@@ -138,12 +138,12 @@ def _node_chunks(g: CSRGraph):
         lo = hi
 
 
-def _interleave(src, tgt):
-    """Per source node, its arcs (src, tgt), then the same arcs reversed:
-    the JAX functions' per-node stream ``yield xx, s; yield s, xx``."""
+def interleave_at(src: torch.Tensor):
+    """Where each arc of a node-ordered chunk goes in the JAX functions'
+    per-node stream ``yield xx, s; yield s, xx``: (forward positions,
+    reversed positions) in a stream of 2m pairs, per source node its d
+    arcs, then the same d arcs reversed."""
     m = src.numel()
-    if m == 0:
-        return src, tgt
     start = torch.ones(m, dtype=torch.bool, device=src.device)
     start[1:] = src[1:] != src[:-1]
     i = torch.arange(m, device=src.device)
@@ -152,8 +152,15 @@ def _interleave(src, tgt):
         torch.where(torch.roll(start, -1) | (i == m - 1), i, m), (0,)),
         0).values, (0,))
     fwd = first + i                   # 2 * first + (i - first)
-    bwd = fwd + (last - first + 1)    # after the node's d forward pairs
-    out_s = torch.empty(2 * m, dtype=src.dtype, device=src.device)
+    return fwd, fwd + (last - first + 1)   # after the node's d forward pairs
+
+
+def _interleave(src, tgt):
+    """Per source node, its arcs (src, tgt), then the same arcs reversed."""
+    if src.numel() == 0:
+        return src, tgt
+    fwd, bwd = interleave_at(src)
+    out_s = torch.empty(2 * src.numel(), dtype=src.dtype, device=src.device)
     out_t = torch.empty_like(out_s)
     out_s[fwd], out_t[fwd] = src, tgt
     out_s[bwd], out_t[bwd] = tgt, src
