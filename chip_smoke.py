@@ -3,9 +3,10 @@
 
 Drives the port's main path -- a cold BVGraph decode planned from the
 stream and its offsets alone, into a device-resident CSR, its files
-written and read back, its transforms encoded on the device, then the
-analytics over it (HyperBall to convergence, BFS, connected and strongly
-connected components, geometric centrality, statistics) -- at uk-2002
+written and read back, its transforms encoded on the device, the command
+line and the sliced decode run on it, then the analytics over it
+(HyperBall to convergence, BFS, connected and strongly connected
+components, geometric centrality, statistics) -- at uk-2002
 scale (18.5M nodes, ~355M arcs of a synthetic web graph), after holding
 both hand-written CUDA kernels against their plain PyTorch versions on the
 card; and the probe path -- every probe of the JAX package's
@@ -69,8 +70,26 @@ Phases, each printing one line:
    what is resident and its bits per link; the chunk size; the cost
    matrix's copy rate; one chunk's pack under ``torch.profiler``; the tie
    groups; and the card.  Everything it made is freed before the next
-   phase;
-8. analytics: on the slice's device CSR (the plan freed), each step timed
+   phase; then labels: two label streams stored and loaded with the slice,
+   and the labelled transforms and SCC;
+8. cli: the command line (``webgraph_tpu_torch/cli``) as a user runs it,
+   on the slice stored once as a BVGraph basename in ``.cli_smoke_*/``
+   under the checkout (removed at the end).  ``python -m
+   webgraph_tpu_torch speedtest <basename> --repeat 3`` in a process of
+   its own (its exit code and printed rate); ``cli.main`` for ``bfs
+   --start 0``, ``scc``, ``stats`` and ``hyperball --log2m 6`` in this
+   process, launch counts reset around each (B1 and B2 must be launched),
+   each output held equal to the same analytic on the slice's in-memory
+   CSR and timed from the call to its return; ``decode_big_slices`` in
+   slices of 2^27 arcs, launch counts reset before each slice, every slice
+   equal to the one-plan CSR, its host halo decode and plans timed apart;
+   then the text formats at ``OFFLINE_NODES``: ``ascii --to-ascii`` and
+   back, ``scattered`` of an arc list whose ids go through a seeded
+   64-bit bijection in shuffled order (the arcs mapped back through
+   ``.ids`` equal the source's, ``.ids`` in first-appearance order, the
+   native parse rate), ``transform symmetrize`` then ``cc``, equal to the
+   in-memory symmetrization's components;
+9. analytics: on the slice's device CSR (the plan freed), each step timed
    alone (host clock + synchronise, peak device bytes) and then checked
    against something independent of the code under test: stats against
    numpy bincounts of the native decode's CSR; the transpose's offsets and
@@ -100,6 +119,7 @@ import hashlib
 import importlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -168,8 +188,9 @@ HB_LOG2M = 6
 SAMPLE = 2000
 CENTRALITY_SOURCES = 32
 CENTRALITY_CHECKED = 4
-# the encode phase's offline transforms: a smaller graph (the batches are
-# merged on the host by a per-node heap) cut into this many batches or more
+# the encode phase's offline transforms and the cli phase's text formats: a
+# smaller graph (the batches are merged on the host by a per-node heap) cut
+# into this many batches or more
 OFFLINE_NODES = 1_000_000
 OFFLINE_BATCHES = 5
 # the labels phase: the geometric distribution of the gamma-coded labels
@@ -1133,6 +1154,283 @@ def _labels_compose(dev, gen) -> dict:
         sampled_nodes=COMPOSE_SAMPLE)
 
 
+# ---- the cli phase: the command line and the sliced decode -------------
+
+# the slice length of the sliced decode (the JAX function's default)
+CLI_SLICE_ARCS = 1 << 27
+# the text formats' ids: a seeded bijection of [0, 2^63), x -> A x + B
+ID_MASK63 = (1 << 63) - 1
+ID_MUL = 0x9E3779B97F4A7C15 & ID_MASK63 | 1
+ID_ADD = 0x2545F4914F6CDD1D
+ID_DIGITS = 19
+
+
+def _bij(x: np.ndarray) -> np.ndarray:
+    return ((x.astype(np.uint64) * np.uint64(ID_MUL) + np.uint64(ID_ADD))
+            & np.uint64(ID_MASK63)).astype(np.int64)
+
+
+def _bij_inverse(y: np.ndarray) -> np.ndarray:
+    inv = pow(ID_MUL, -1, 1 << 63)
+    return (((y.astype(np.uint64) - np.uint64(ID_ADD)) * np.uint64(inv))
+            & np.uint64(ID_MASK63)).astype(np.int64)
+
+
+def _decimal(v: np.ndarray) -> np.ndarray:
+    """Non-negative int64 values as fixed-width ASCII digits, one row
+    each (leading zeros are decimal all the same)."""
+    out = np.empty((len(v), ID_DIGITS), dtype=np.uint8)
+    x = v.copy()
+    for k in range(ID_DIGITS - 1, -1, -1):
+        out[:, k] = x % 10 + 48
+        x //= 10
+    return out
+
+
+def _cli(argv: list) -> tuple:
+    """``cli.main(argv)`` on the card with the launch counts reset just
+    before and read just after: (printed text, seconds from the call to
+    its return, ending in a synchronise, launches)."""
+    import contextlib
+    import io
+    from webgraph_tpu_torch import cli
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return buf.getvalue(), secs, {k: _build.LAUNCHES[k] for k in KERNELS}
+
+
+def _decoded(launches: dict, what: str) -> None:
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"{what} never launched {k}")
+
+
+def _same_bytes(a: str, b: str, what: str) -> None:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError(f"{what}: {os.path.basename(a)} differs")
+
+
+def phase_cli(dev, card: str, graph, hco, hsu) -> dict:
+    """The command line and the sliced decode at the slice's scale, and the
+    text formats at ``OFFLINE_NODES``; every output held to the same
+    analytic on the slice's in-memory CSR.  The directory is removed at
+    the end."""
+    from webgraph_tpu_torch.ops.bigdecode import decode_big_slices
+    from webgraph_tpu_torch.utils.stats import write_stats
+    n, m = graph.num_nodes, graph.num_arcs
+    out = dict(card=card, nodes=n, arcs=m)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix=".cli_smoke_", dir=ROOT)
+    try:
+        bv = os.path.join(tmp, "bv")
+        t0 = time.perf_counter()
+        BVGraph.store(graph, bv)
+        out["store_s"] = time.perf_counter() - t0
+
+        # 1. the module's entry in a process of its own
+        t0 = time.perf_counter()
+        sp = subprocess.run([sys.executable, "-m", "webgraph_tpu_torch",
+                             "speedtest", bv, "--repeat", "3"], cwd=ROOT,
+                            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if sp.returncode != 0:
+            raise AssertionError(f"python -m webgraph_tpu_torch speedtest "
+                                 f"exited {sp.returncode}: "
+                                 f"{sp.stderr[-2000:]}")
+        line = sp.stdout.strip().splitlines()[-1]
+        hit = re.fullmatch(r"([0-9.]+) ns/link  \(([0-9.]+) M links/s\)",
+                           line)
+        if hit is None:
+            raise AssertionError(f"speedtest printed {line!r}")
+        out["speedtest"] = dict(line=line, ns_per_link=float(hit[1]),
+                                Medges_per_s=float(hit[2]),
+                                process_wall_s=wall)
+
+        # 2. the analytics commands in this process, each on the card
+        cmds = {}
+        text, secs, la = _cli(["bfs", bv, os.path.join(tmp, "dist"),
+                               "--start", "0"])
+        _decoded(la, "bfs")
+        dist, rounds = A.bfs(graph, [0])
+        want = f"reached={int((dist >= 0).sum())} rounds={rounds}\n"
+        got = torch.from_numpy(np.fromfile(os.path.join(tmp, "dist"),
+                                           dtype=np.int32)).to(dev)
+        if text != want or not torch.equal(got, dist.to(torch.int32)):
+            raise AssertionError("cli bfs differs from bfs on the slice")
+        cmds["bfs"] = dict(seconds=secs, launches=la, printed=text)
+        del dist, got
+
+        text, secs, la = _cli(["scc", bv, os.path.join(tmp, "scc")])
+        _decoded(la, "scc")
+        k, comp = A.strongly_connected_components(graph)
+        got = torch.from_numpy(np.fromfile(os.path.join(tmp, "scc"),
+                                           dtype=np.int64)).to(dev)
+        if not torch.equal(got, comp) or not text.startswith(
+                f"components={k} "):
+            raise AssertionError("cli scc differs from the SCC of the slice")
+        cmds["scc"] = dict(seconds=secs, launches=la, printed=text)
+        del comp, got
+
+        text, secs, la = _cli(["stats", bv, os.path.join(tmp, "st")])
+        _decoded(la, "stats")
+        write_stats(compute_stats(graph), os.path.join(tmp, "want"))
+        for ext in (".stats", ".outdegrees", ".indegrees"):
+            _same_bytes(os.path.join(tmp, "st" + ext),
+                        os.path.join(tmp, "want" + ext), "cli stats")
+        cmds["stats"] = dict(seconds=secs, launches=la)
+
+        text, secs, la = _cli(["hyperball", bv, "--log2m", str(HB_LOG2M)])
+        _decoded(la, "hyperball")
+        nf = A.HyperBall(graph, log2m=HB_LOG2M).run()
+        got = [float(r.split("\t")[1]) for r in text.splitlines()]
+        if len(got) != len(nf) or not np.allclose(got, nf, rtol=1e-12,
+                                                  atol=0):
+            raise AssertionError("cli hyperball's neighbourhood function "
+                                 "differs from HyperBall on the slice")
+        cmds["hyperball"] = dict(seconds=secs, launches=la,
+                                 rounds=len(nf) - 1)
+        out["commands"] = cmds
+        torch.cuda.empty_cache()
+
+        # 3. the sliced decode, launch counts reset before each slice
+        t0 = time.perf_counter()
+        bvg = BVGraph.load(bv)
+        offsets = bvg.offsets_array()
+        outd = native.decode_outdegrees(bvg.data, offsets,
+                                        bvg.settings.outdegree_coding)
+        prep_s = time.perf_counter() - t0
+        rep, per_slice = [], []
+        it = decode_big_slices(offsets, outd, bvg.settings, bvg.data,
+                               slice_arcs=CLI_SLICE_ARCS, report=rep)
+        x = 0
+        t0 = time.perf_counter()
+        while True:
+            _build.reset_launches()
+            try:
+                lo, hi, co, succ = next(it)
+            except StopIteration:
+                break
+            la = {k: _build.LAUNCHES[k] for k in KERNELS}
+            _decoded(la, f"slice [{lo}, {hi})")
+            a, b = int(hco[lo]), int(hco[hi])
+            if not (lo == x and torch.equal(co, graph.offsets[lo:hi + 1] - a)
+                    and torch.equal(succ, graph.succ[a:b])):
+                raise AssertionError(f"slice [{lo}, {hi}) differs from the "
+                                     f"one-plan CSR")
+            per_slice.append(la)
+            x = hi
+            del co, succ
+        sliced_s = time.perf_counter() - t0
+        if x != n or len(rep) < 3:
+            raise AssertionError(f"{len(rep)} slices reaching node {x}")
+        host = sum(r["halo_decode_s"] + r["plan_s"] for r in rep)
+        out["sliced"] = dict(
+            slice_arcs=CLI_SLICE_ARCS, slices=len(rep), seconds=sliced_s,
+            prep_s=prep_s, halo_decode_s=sum(r["halo_decode_s"]
+                                             for r in rep),
+            plan_s=sum(r["plan_s"] for r in rep),
+            decode_s=sum(r["decode_s"] for r in rep),
+            host_share=host / sliced_s, launches_per_slice=per_slice,
+            report=rep, equal_to_one_plan=True)
+        del bvg, offsets, outd
+        torch.cuda.empty_cache()
+
+        # 4. the text formats at OFFLINE_NODES
+        out["text"] = _cli_text_formats(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _cli_text_formats(dev, tmp: str) -> dict:
+    """``ascii`` both ways, ``scattered`` of an arc list with ids through a
+    seeded bijection in shuffled order, ``transform symmetrize`` then
+    ``cc``: each result held to the source graph in memory."""
+    co, su = synthesize_webgraph(OFFLINE_NODES, seed=1)
+    small = CSRGraph(co, su, device=dev)
+    n, m = small.num_nodes, small.num_arcs
+    res = dict(nodes=n, arcs=m)
+    src = os.path.join(tmp, "small")
+    BVGraph.store(small, src)
+
+    txt = os.path.join(tmp, "small_txt")
+    _, secs, la = _cli(["ascii", src, txt, "--to-ascii"])
+    res["to_ascii"] = dict(seconds=secs, launches=la,
+                           bytes=os.path.getsize(txt + ".graph-txt"))
+    back = os.path.join(tmp, "small_back")
+    _, secs, la = _cli(["ascii", txt, back])
+    res["from_ascii"] = dict(seconds=secs, launches=la)
+    _same_csr(load_csr(back), small, "ascii round trip")
+
+    # an arc list: every arc once, ids through the bijection, lines shuffled
+    rng = np.random.default_rng(7)
+    order = rng.permutation(m)
+    s_ids = _bij(np.repeat(np.arange(n, dtype=np.int64), np.diff(co)))[order]
+    t_ids = _bij(su)[order]
+    rows = np.empty((m, 2 * ID_DIGITS + 2), dtype=np.uint8)
+    rows[:, :ID_DIGITS] = _decimal(s_ids)
+    rows[:, ID_DIGITS] = ord("\t")
+    rows[:, ID_DIGITS + 1:-1] = _decimal(t_ids)
+    rows[:, -1] = ord("\n")
+    buf = rows.tobytes()
+    del rows
+    arcs = os.path.join(tmp, "arcs.txt")
+    with open(arcs, "wb") as f:
+        f.write(buf)
+    t0 = time.perf_counter()
+    ps, pt, used = native.parse_arcs(buf)
+    parse_s = time.perf_counter() - t0
+    if used != len(buf) or not (np.array_equal(ps, s_ids)
+                                and np.array_equal(pt, t_ids)):
+        raise AssertionError("the arc list parses to other ids")
+    del ps, pt
+    sc = os.path.join(tmp, "sc")
+    _, secs, la = _cli(["scattered", arcs, sc])
+    res["scattered"] = dict(seconds=secs, launches=la, text_bytes=len(buf),
+                            parse_s=parse_s,
+                            parse_MB_per_s=len(buf) / parse_s / 1e6)
+    del buf
+    ids = np.fromfile(sc + ".ids", dtype=">i8").astype(np.int64)
+    both = np.empty(2 * m, dtype=np.int64)
+    both[0::2], both[1::2] = s_ids, t_ids
+    uniq, first = np.unique(both, return_index=True)
+    if not np.array_equal(ids, uniq[np.argsort(first, kind="stable")]):
+        raise AssertionError("scattered: .ids is not in first-appearance "
+                             "order")
+    del both, uniq, first, s_ids, t_ids
+    perm = torch.from_numpy(_bij_inverse(ids)).to(dev)
+    g = load_csr(sc)
+    gs, gt = g.arcs()
+    key = torch.sort((perm[gs] << 32) | perm[gt]).values
+    ws, wt = small.arcs()
+    if not torch.equal(key, (ws << 32) | wt):
+        raise AssertionError("scattered: the arcs mapped back through .ids "
+                             "differ from the source's")
+    del g, gs, gt, key, ws, wt, perm
+
+    sym = os.path.join(tmp, "small_sym")
+    _, secs, la = _cli(["transform", "symmetrize", src, sym])
+    res["symmetrize"] = dict(seconds=secs, launches=la)
+    _, secs, la = _cli(["cc", sym, os.path.join(tmp, "cc")])
+    res["cc"] = dict(seconds=secs, launches=la)
+    comp = torch.from_numpy(np.fromfile(os.path.join(tmp, "cc"),
+                                        dtype=np.int64)).to(dev)
+    if not torch.equal(comp, A.connected_components(TR.symmetrize(small))):
+        raise AssertionError("cli cc differs from CC of the symmetrization")
+    return res
+
+
 def _pack_profile(graph, s) -> dict:
     """``profile_window`` over the pack of the slice's first chunk (its
     nodes' references selected over its own cost matrix)."""
@@ -1471,6 +1769,7 @@ def main() -> int:
     emit("encode", enc)
     emit("labels", phase_labels(dev, card, **ctx,
                                 digest=enc["slice_digest"]))
+    emit("cli", phase_cli(dev, card, **ctx))
     emit("analytics", phase_analytics(dev, **ctx))
     del ctx
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),

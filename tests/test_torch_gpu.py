@@ -559,3 +559,95 @@ def test_store_labelled_cuda_on_card_matches_host(cuda, tmp_path, kind):
     for k in ("bv_decode_lanes", "compact_runs"):
         assert _build.LAUNCHES[k] > before[k]
     assert back.device == card_g.device and back.equals_labelled(card_g)
+
+
+def _b1_b2():
+    return [_build.LAUNCHES[k] for k in ("bv_decode_lanes", "compact_runs")]
+
+
+@pytest.mark.parametrize("argv,outs", [
+    (["bfs", "{d}/bv", "{d}/dist", "-s", "5"], ["dist"]),
+    (["scc", "{d}/bv", "{d}/comp"], ["comp"]),
+    (["stats", "{d}/bv", "{d}/st", "--scc"], ["st.stats", "st.outdegrees",
+                                              "st.indegrees"]),
+    (["hyperball", "{d}/bv", "-l", "5"], []),
+    (["transform", "symmetrize", "{d}/bv", "{d}/sym"],
+     ["sym.graph", "sym.offsets"]),
+    (["bvgraph", "{d}/bv", "{d}/re", "-w", "3"], ["re.graph", "re.offsets"]),
+    (["speedtest", "{d}/bv", "-R", "1"], [])])
+def test_cli_on_card_matches_cpu(cuda, tmp_path, capsys, argv, outs):
+    """``cli.main`` with no ``--device`` runs on the card: the decode
+    launches B1 and B2, and the printed lines (bar speedtest's timing) and
+    written files equal the CPU run's."""
+    from webgraph_tpu_torch.cli import main
+    _file_graph(tmp_path)
+    runs = {}
+    for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        d = tmp_path / name
+        d.mkdir()
+        for ext in (".graph", ".offsets", ".properties"):
+            (d / ("bv" + ext)).write_bytes((tmp_path / ("bv" + ext))
+                                           .read_bytes())
+        _build.reset_launches()
+        assert main([a.format(d=d) for a in argv] + extra) == 0
+        torch.cuda.synchronize()
+        runs[name] = (capsys.readouterr().out, _b1_b2(), d)
+    assert all(v > 0 for v in runs["card"][1]), runs["card"][1]
+    assert runs["cpu"][1] == [0, 0]
+    if argv[0] == "speedtest":
+        assert "M links/s" in runs["card"][0]
+    elif argv[0] == "hyperball":
+        a = [float(x.split("\t")[1]) for x in runs["card"][0].split("\n")
+             if x]
+        b = [float(x.split("\t")[1]) for x in runs["cpu"][0].split("\n")
+             if x]
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=0)
+    else:
+        assert runs["card"][0] == runs["cpu"][0]
+    for f in outs:
+        assert (runs["card"][2] / f).read_bytes() == (
+            runs["cpu"][2] / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("slice_arcs", [20_000, 1 << 40])
+def test_sliced_decode_on_card_matches_plain(cuda, slice_arcs):
+    """``decode_big_slices`` on the card equals its run on the CPU (the
+    plain versions), slice for slice, and launches B1 and B2 per slice."""
+    from webgraph_tpu_torch.ops.bigdecode import decode_big_slices
+    s = BVGraphSettings()
+    co, su = E.simple(*synthesize_webgraph(6000, seed=4))
+    graph, _gb, offs, _ob, _st = native.bv_encode(co, su, s, threads=1)
+    offsets = native.decode_offset_stream(offs, len(co) - 1,
+                                          s.offset_coding)
+    outd = np.diff(co)
+    card = []
+    for lo, hi, c, succ in decode_big_slices(offsets, outd, s, graph,
+                                             slice_arcs=slice_arcs):
+        assert c.device.type == "cuda" and succ.device.type == "cuda"
+        card.append((lo, hi, c.cpu(), succ.cpu()))
+    _build.reset_launches()
+    plain = list(decode_big_slices(offsets, outd, s, graph,
+                                   slice_arcs=slice_arcs, device="cpu"))
+    assert _b1_b2() == [0, 0]
+    assert len(card) == len(plain) >= (2 if slice_arcs < len(su) else 1)
+    for (lo, hi, c, succ), (plo, phi, pc, psucc) in zip(card, plain):
+        assert (lo, hi) == (plo, phi)
+        assert torch.equal(c, pc) and torch.equal(succ, psucc)
+    assert torch.equal(torch.cat([x[3] for x in card]).to(torch.int64),
+                       torch.from_numpy(su))
+
+
+def test_sliced_decode_launches_per_slice(cuda):
+    from webgraph_tpu_torch.ops.bigdecode import decode_big_slices
+    s = BVGraphSettings()
+    co, su = E.simple(*synthesize_webgraph(6000, seed=5))
+    graph, _gb, offs, _ob, _st = native.bv_encode(co, su, s, threads=1)
+    offsets = native.decode_offset_stream(offs, len(co) - 1,
+                                          s.offset_coding)
+    _build.reset_launches()
+    seen = []
+    for _lo, _hi, _c, _succ in decode_big_slices(offsets, np.diff(co), s,
+                                                 graph, slice_arcs=15_000):
+        seen.append(_b1_b2())
+        _build.reset_launches()
+    assert len(seen) >= 3 and all(b1 >= 1 and b2 >= 1 for b1, b2 in seen)

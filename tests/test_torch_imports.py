@@ -79,6 +79,12 @@ def test_importing_the_port_loads_no_jax():
         "from webgraph_tpu_torch import native, settings\n"
         "from webgraph_tpu_torch.utils import synth\n"
         "from webgraph_tpu_torch.tools import b1_sweep, b2_sweep\n"
+        "from webgraph_tpu_torch.codecs import ascii, intlist, scattered\n"
+        "from webgraph_tpu_torch.core import incremental, wrap, wrappers\n"
+        "from webgraph_tpu_torch.utils import hostmap, progress\n"
+        "from webgraph_tpu_torch.ops import bigdecode\n"
+        "import webgraph_tpu_torch.typed, webgraph_tpu_torch.cli\n"
+        "import webgraph_tpu_torch.cli.main\n"
         "import chip_smoke\n"
         "import importlib, pkgutil, webgraph_tpu_torch.experiments as ex\n"
         "mods = [m.name for m in pkgutil.iter_modules(ex.__path__)]\n"
@@ -94,3 +100,27 @@ def test_importing_the_port_loads_no_jax():
     if out.stdout.strip() == "PRE":
         pytest.skip("this interpreter loads jax at start-up")
     assert out.stdout.strip() == "OK"
+
+
+# the modules ported in the ninth slice: the host layer and the CLI, each
+# with the JAX module's path and public names
+HOST_LAYER = ("cli", "cli.main", "codecs.ascii", "codecs.intlist",
+              "codecs.scattered", "core.incremental", "core.wrap",
+              "core.wrappers", "typed", "utils.hostmap", "utils.progress",
+              "ops.bigdecode")
+
+
+@pytest.mark.parametrize("mod", HOST_LAYER)
+def test_host_layer_module_mirrors_the_jax_one(mod):
+    import importlib
+    port = importlib.import_module("webgraph_tpu_torch." + mod)
+    ref = importlib.import_module("webgraph_tpu." + mod)
+    assert sorted(getattr(port, "__all__", [])) == sorted(
+        getattr(ref, "__all__", []))
+    for name in getattr(ref, "__all__", []):
+        assert hasattr(port, name), name
+
+
+def test_dunder_main_exists():
+    assert (PKG / "__main__.py").exists()
+    assert "from .cli import main" in (PKG / "__main__.py").read_text()

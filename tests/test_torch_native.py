@@ -6,6 +6,8 @@ generator and the word packer.  Each copy must give the same bytes and
 arrays as the original on the same inputs; every comparison is exact.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -161,3 +163,42 @@ def test_jax_settings_drive_the_port_library():
 def test_library_is_built_from_the_port_sources():
     path = PN.lib_path()
     assert "webgraph_tpu_torch" in path and "/build/" in path
+
+
+def _c_function(path, name):
+    """The text of C function ``name`` in ``path``: from its signature to
+    the closing brace at column 0."""
+    src = open(path).read()
+    start = src.index(f"int64_t {name}(")
+    return src[start:src.index("\n}\n", start) + 3]
+
+
+def test_parse_arcs_source_is_the_original():
+    """``wg_parse_arcs`` is copied, not rewritten: the port's function text
+    equals the JAX package's."""
+    import webgraph_tpu.native as jn
+    import webgraph_tpu_torch.native as pn
+    here = [os.path.join(os.path.dirname(m.__file__), "wgnative.cpp")
+            for m in (jn, pn)]
+    assert _c_function(here[0], "wg_parse_arcs") == _c_function(
+        here[1], "wg_parse_arcs")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_parse_arcs_fuzz_equal(seed):
+    """Random text of numbers, signs, blanks, comments and junk: both
+    libraries parse the same pairs and consume the same bytes, or raise the
+    same error, with and without ``eof``."""
+    rng = np.random.default_rng(seed)
+    pieces = [b"1", b"23", b"-4", b"+5", b" ", b"\t", b"\r", b"\n", b"#",
+              b"x", b"9999999999"]
+    buf = b"".join(pieces[i] for i in rng.integers(0, len(pieces), 400))
+    for eof in (False, True):
+        outs = []
+        for lib in (JN, PN):
+            try:
+                s, t, used = lib.parse_arcs(buf, eof=eof)
+                outs.append((s.tolist(), t.tolist(), used))
+            except ValueError as e:
+                outs.append(str(e))
+        assert outs[0] == outs[1]

@@ -1,0 +1,3 @@
+from .cli import main
+import sys
+sys.exit(main())

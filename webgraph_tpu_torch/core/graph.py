@@ -14,8 +14,11 @@ Counterpart of ``webgraph_tpu/core/graph.py``:
   that device: sorting, deduplication and the per-arc source index are
   torch ops there.  ``from_decoded`` wraps the output of
   ``ops.csr.decode_to_csr`` without bringing the successors to the host;
-- ``load_csr``, the device entry: a basename to a ``CSRGraph`` on the GPU
-  (or on a device the caller names).
+- ``load_csr``, the device entry: a basename of any registered format to a
+  ``CSRGraph`` on the GPU (or on a device the caller names).  Formats with a
+  device decoder (BVGraph, EFGraph) decode there; the others (ASCII,
+  int-list, views) are scanned on the host by ``ImmutableGraph.to_device``
+  and uploaded, which their ``report["route"]`` says ("scan").
 """
 
 from __future__ import annotations
@@ -195,7 +198,8 @@ class CSRGraph:
 #: (64-bit) and standard (32-bit) Java class names map to the same class:
 #: the on-disk formats are identical (ImmutableGraph.java:920/:1039).
 GRAPH_CLASS_REGISTRY: Dict[str, type] = {}
-_CODECS = ("codecs.bvgraph", "codecs.efgraph", "labelling.graph")
+_CODECS = ("codecs.bvgraph", "codecs.efgraph", "codecs.ascii",
+           "codecs.intlist", "labelling.graph")
 
 
 def register_graph_class(*java_names):
@@ -270,6 +274,22 @@ class ImmutableGraph:
         succ = np.concatenate(chunks) if chunks else np.zeros(0, np.int64)
         return CSRGraph(np.asarray(offs, dtype=np.int64), succ,
                         num_nodes=hi - lo, device=device)
+
+    def to_device(self, device=None) -> "CSRGraph":
+        """The whole graph as a ``CSRGraph`` on ``device`` (the GPU when
+        None, the CPU only when the caller names it): scanned on the host
+        and uploaded, for formats with no device decoder.  The result's
+        ``report`` says so (``route`` "scan") and times the scan and upload
+        on the host clock, ending in a synchronise."""
+        from ..device import require_cuda
+
+        dev = require_cuda() if device is None else torch.device(device)
+        t0 = time.perf_counter()
+        g = self.to_csr(device=dev)
+        sync(dev)
+        g.report = dict(format=type(self).__name__, route="scan",
+                        scan_s=time.perf_counter() - t0)
+        return g
 
     def equals(self, other) -> bool:
         """Successor-list equality (ImmutableGraph.java equals)."""

@@ -5,8 +5,9 @@ The library is built with g++ for the host it runs on, on first use, into
 committed.  It is the port's own copy of what it needs of the JAX package's
 host library, with the same functions and results: the offsets index, the
 outdegree scan, the sequential decoder, the batched range decoder, the
-header-only reference scan, the parallel and streaming encoders, and the
-device encoder's greedy reference selection.
+header-only reference scan, the parallel and streaming encoders, the
+device encoder's greedy reference selection, and the arc-pair text parser
+of scattered-arc ingestion.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import numpy as np
 
 __all__ = ["decode_offset_stream", "decode_outdegrees",
            "bv_decode_all", "bv_decode_range", "bv_encode", "bv_scan_refs",
-           "bv_fill_ranges", "select_refs", "StreamEncoder", "lib_path"]
+           "bv_fill_ranges", "select_refs", "StreamEncoder", "lib_path",
+           "parse_arcs", "parse_arcs_available"]
 
 #: stats words returned by bv_encode: copied, intervalised, residual arcs;
 #: tot_ref, tot_dist; bits for outdegrees/references/blocks/intervals/
@@ -39,7 +41,7 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         for fn in ("wg_bv_decode_all", "wg_bv_decode_range", "wg_bv_encode",
                    "wg_bv_fill_ranges", "wg_bv_scan_refs", "wg_enc_push",
-                   "wg_enc_finish", "wg_select_refs"):
+                   "wg_enc_finish", "wg_select_refs", "wg_parse_arcs"):
             getattr(lib, fn).restype = ctypes.c_int64
         lib.wg_enc_new.restype = ctypes.c_void_p
         lib.wg_enc_free.restype = None
@@ -360,3 +362,33 @@ class StreamEncoder:
         if getattr(self, "_h", None) is not None:
             self._lib.wg_enc_free(self._h)
             self._h = None
+
+
+def parse_arcs_available() -> bool:
+    """True: the parser is part of the port's library, built on first use
+    (a failed build raises)."""
+    return hasattr(_load(), "wg_parse_arcs")
+
+
+def parse_arcs(buf: bytes, eof: bool = True) -> tuple:
+    """Parse "<src> <tgt>" text lines -> (src int64[k], tgt int64[k],
+    bytes_consumed).  Blank and '#' lines are skipped; unless ``eof``, a
+    trailing incomplete line is left unconsumed (the streaming chunk
+    protocol); a malformed line raises ``ValueError`` naming its byte
+    offset."""
+    lib = _load()
+    data = np.frombuffer(buf, dtype=np.uint8)
+    # every pair needs >= 3 bytes ("a b\n")
+    cap = max(len(data) // 3 + 1, 16)
+    src = np.empty(cap, dtype=np.int64)
+    tgt = np.empty(cap, dtype=np.int64)
+    consumed = ctypes.c_int64(0)
+    rc = lib.wg_parse_arcs(
+        _ptr(data), ctypes.c_int64(len(data)), ctypes.c_int(1 if eof else 0),
+        _ptr(src, ctypes.c_int64), _ptr(tgt, ctypes.c_int64),
+        ctypes.c_int64(cap), ctypes.byref(consumed))
+    if rc < 0:
+        off = int(-rc - 1)
+        snippet = buf[off:off + 40].split(b"\n", 1)[0]
+        raise ValueError(f"malformed arc line at byte {off}: {snippet!r}")
+    return src[:rc].copy(), tgt[:rc].copy(), int(consumed.value)

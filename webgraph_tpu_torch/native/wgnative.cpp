@@ -1172,4 +1172,50 @@ int64_t wg_select_refs(const int64_t* costs, const int64_t* outd, int64_t n,
     return 0;
 }
 
+// Fast arc-pair text parse (the scalar hot loop of scattered-arc ingestion,
+// the role ScatteredArcsASCIIGraph.java:600-700's char-level scanner plays).
+// Parses lines of the form "<int64> <int64>[ \t]*" from `buf`; blank lines
+// and lines starting with '#' are skipped.  At most `cap` pairs are parsed
+// and, unless `eof`, a trailing incomplete line (no '\n') is left
+// unconsumed; *consumed reports the bytes processed so the caller can carry
+// the remainder into the next chunk.  Returns the number of pairs parsed,
+// or -(byte offset + 1) of the first malformed line.
+int64_t wg_parse_arcs(const uint8_t* buf, int64_t len, int eof,
+                      int64_t* src, int64_t* tgt, int64_t cap,
+                      int64_t* consumed) {
+    int64_t p = 0, count = 0;
+    while (p < len && count < cap) {
+        // find the end of this line
+        const uint8_t* nl = (const uint8_t*)std::memchr(buf + p, '\n',
+                                                        (size_t)(len - p));
+        int64_t q = nl ? (int64_t)(nl - buf) : len;
+        if (!nl && !eof) break;  // incomplete trailing line: leave it
+        int64_t i = p;
+        while (i < q && (buf[i] == ' ' || buf[i] == '\t' || buf[i] == '\r'))
+            i++;
+        if (i == q || buf[i] == '#') { p = q + 1; continue; }
+        int64_t vals[2];
+        for (int k = 0; k < 2; k++) {
+            bool neg = false;
+            if (buf[i] == '-' || buf[i] == '+') { neg = buf[i] == '-'; i++; }
+            if (i >= q || buf[i] < '0' || buf[i] > '9') return -(p + 1);
+            uint64_t v = 0;
+            while (i < q && buf[i] >= '0' && buf[i] <= '9')
+                v = v * 10 + (uint64_t)(buf[i++] - '0');
+            vals[k] = neg ? -(int64_t)v : (int64_t)v;
+            while (i < q && (buf[i] == ' ' || buf[i] == '\t'
+                             || buf[i] == '\r'))
+                i++;
+            if (k == 0 && i >= q) return -(p + 1);  // only one field
+        }
+        if (i != q) return -(p + 1);  // trailing garbage after two fields
+        src[count] = vals[0];
+        tgt[count] = vals[1];
+        count++;
+        p = q + 1;
+    }
+    *consumed = p > len ? len : p;
+    return count;
+}
+
 }  // extern "C"
