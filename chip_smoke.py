@@ -4,7 +4,8 @@
 Drives the port's main path -- a cold BVGraph decode planned from the
 stream and its offsets alone, into a device-resident CSR, its files
 written and read back, its transforms encoded on the device, the command
-line and the sliced decode run on it, then the analytics over it
+line and the sliced decode run on it, its shards encoded and decoded by
+rank processes and over listed devices, then the analytics over it
 (HyperBall to convergence, BFS, connected and strongly connected
 components, geometric centrality, statistics) -- at uk-2002
 scale (18.5M nodes, ~355M arcs of a synthetic web graph), after holding
@@ -89,7 +90,24 @@ Phases, each printing one line:
    ``.ids`` equal the source's, ``.ids`` in first-appearance order, the
    native parse rate), ``transform symmetrize`` then ``cc``, equal to the
    in-memory symmetrization's components;
-9. analytics: on the slice's device CSR (the plan freed), each step timed
+9. parallel: multi-host and multi-device (``webgraph_tpu_torch/parallel``)
+   at the slice's scale, in ``.parallel_smoke_*/`` under the checkout
+   (removed at the end).  ``store_multihost(graph, 4, backend="cuda")`` of
+   the device CSR, its ``.graph``/``.offsets`` held byte-equal (sha256) to
+   the 4-thread native encode and its ``.properties`` equal bar the date
+   line, read back through ``load_csr`` (B1 and B2) equal; two rank
+   processes (spawn, gloo, ``file://``) sharing the card, each encoding its
+   shard on the card, rank 0 merging after a barrier (held to
+   ``native.bv_encode(threads=2)``, run beside them), each planning and
+   decoding its shard (``plan_shard_decode``, ``decode_to_csr``: B1 and B2
+   launched) and holding it to a digest of the slice's; the sharded kernel
+   decode of the slice's resolved plan over the card listed once and 4
+   times (B1 launched once a share, the compacted result ``torch.equal``
+   to the unsharded decode); ``decode_sharded`` over the card listed twice,
+   equal to the native decode.  The line gives the shard bounds, each
+   timing, the ranks' process start and CUDA init, peak bytes and the
+   card;
+10. analytics: on the slice's device CSR (the plan freed), each step timed
    alone (host clock + synchronise, peak device bytes) and then checked
    against something independent of the code under test: stats against
    numpy bincounts of the native decode's CSR; the transpose's offsets and
@@ -1431,6 +1449,251 @@ def _cli_text_formats(dev, tmp: str) -> dict:
     return res
 
 
+# the parallel phase: hosts of the one-process multi-host encode, rank
+# processes of the two-process run, and the device lists of the sharded
+# kernel decode (one device listed D times)
+PARALLEL_HOSTS = 4
+PARALLEL_RANKS = 2
+PARALLEL_SHARES = (1, 4)
+PARALLEL_DECODE_DEVICES = 2
+RANK_DEADLINE_S = 600
+
+
+def _parallel_rank(rank: int, tmp: str, digests: list, t_spawn: float
+                   ) -> None:
+    """One rank of the parallel phase's two-process run, in a process of
+    its own on the card: join the gloo group (``file://`` in ``tmp``),
+    encode its shard of ``tmp/{co,su}.npy`` on the card, wait while rank 0
+    merges, then plan and decode its shard of the merged basename and hold
+    its successors to ``digests[rank]`` (sha256 of the int32 bytes).  Rank
+    0 writes every rank's timings to ``tmp/ranks.json``."""
+    import torch.distributed as dist
+    from webgraph_tpu_torch.parallel import multihost as MH
+
+    start_s = time.time() - t_spawn
+    t0 = time.perf_counter()
+    dev = require_cuda()
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    cuda_init_s = time.perf_counter() - t0
+    got = MH.initialize("file://" + os.path.join(tmp, "rendezvous"),
+                        PARALLEL_RANKS, rank, backend="gloo")
+    if got != (rank, PARALLEL_RANKS):
+        raise AssertionError(f"rank {rank}: initialize gave {got}")
+    try:
+        s = BVGraphSettings()
+        co = np.load(os.path.join(tmp, "co.npy"))
+        su = np.load(os.path.join(tmp, "su.npy"), mmap_mode="r")
+        bounds = MH.shard_bounds(co, PARALLEL_RANKS)
+        lo, hi = int(bounds[rank]), int(bounds[rank + 1])
+        base = os.path.join(tmp, "ranks")
+        t0 = time.perf_counter()
+        MH.encode_shard(co, su, s, base, rank, lo, hi, threads=1,
+                        backend="cuda", device=dev)
+        encode_s = time.perf_counter() - t0
+        dist.barrier()
+        merge_s = None
+        if rank == 0:
+            t0 = time.perf_counter()
+            MH.merge_shards(base, PARALLEL_RANKS, s)
+            merge_s = time.perf_counter() - t0
+        dist.barrier()
+        bv = BVGraph.load(base)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        plan, plo, phi = MH.plan_shard_decode(bv, bv.data, rank,
+                                              PARALLEL_RANKS)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        passes = resolve_halos(plan)
+        torch.cuda.synchronize()
+        resolve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pco, succ, filled = decode_to_csr(plan)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = {k: _build.LAUNCHES[k] for k in KERNELS}
+        _decoded(launches, f"rank {rank}'s shard decode")
+        if (plo, phi) != (lo, hi) or filled:
+            raise AssertionError(f"rank {rank}: shard ({plo}, {phi}) for "
+                                 f"({lo}, {hi}), {filled} arcs filled")
+        if not np.array_equal(pco, co[lo:hi + 1] - co[lo]):
+            raise AssertionError(f"rank {rank}: shard offsets differ")
+        digest = hashlib.sha256(succ.cpu().numpy().tobytes()).hexdigest()
+        if digest != digests[rank]:
+            raise AssertionError(f"rank {rank}: shard successors differ")
+        rec = dict(rank=rank, lo=lo, hi=hi, arcs=int(co[hi] - co[lo]),
+                   process_start_s=start_s, cuda_init_s=cuda_init_s,
+                   encode_s=encode_s, merge_s=merge_s, plan_s=plan_s,
+                   resolve_s=resolve_s, resolve_passes=passes,
+                   decode_to_csr_s=decode_s, launches=launches,
+                   lanes=plan.lanes,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        recs = [None] * PARALLEL_RANKS
+        dist.all_gather_object(recs, rec)
+        if rank == 0:
+            with open(os.path.join(tmp, "ranks.json"), "w") as f:
+                json.dump(recs, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(dev, card: str, graph, hco, hsu) -> dict:
+    """Multi-host and multi-device at the slice's scale
+    (``webgraph_tpu_torch/parallel``): the one-process multi-host encode
+    on the card held byte-equal to the native encoder's threads; two rank
+    processes on the one card encoding, merging and decoding their shards;
+    the sharded kernel decode over the card listed 1 and 4 times; the
+    sharded whole decode.  The directory is removed at the end."""
+    import torch.multiprocessing as mp
+    from webgraph_tpu_torch.parallel import multihost as MH
+    from webgraph_tpu_torch.parallel import sharded as SH
+    s = BVGraphSettings()
+    n, m = graph.num_nodes, graph.num_arcs
+    out = dict(card=card, nodes=n, arcs=m)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix=".parallel_smoke_", dir=ROOT)
+    try:
+        # 1. multi-host encode in one process: 4 shards on the card, merged
+        base = os.path.join(tmp, "hosts")
+        rep = {}
+        t0 = time.perf_counter()
+        MH.store_multihost(graph, base, PARALLEL_HOSTS, settings=s,
+                           backend="cuda", report=rep)
+        store_s = time.perf_counter() - t0
+        nat = os.path.join(tmp, "native")
+        t0 = time.perf_counter()
+        BVGraph.store(CSRGraph(hco, hsu, device="cpu"), nat,
+                      backend="native", num_threads=PARALLEL_HOSTS)
+        native_s = time.perf_counter() - t0
+        for ext in (".graph", ".offsets"):
+            if _sha256(base + ext) != _sha256(nat + ext):
+                raise AssertionError(f"the {PARALLEL_HOSTS}-host encode's "
+                                     f"{ext} differs from native.bv_encode("
+                                     f"threads={PARALLEL_HOSTS})")
+        if _props_lines(base + ".properties") != _props_lines(
+                nat + ".properties"):
+            raise AssertionError("the multi-host encode's properties differ")
+        out["hosts"] = dict(
+            hosts=PARALLEL_HOSTS, shard_bounds=rep["bounds"],
+            shard_encode_s=rep["shard_s"], merge_s=rep["merge_s"],
+            store_s=store_s, native_threads_store_s=native_s,
+            graph_bytes=os.path.getsize(base + ".graph"),
+            byte_identical_to_native_threads=True,
+            **_read_back(base, graph, "multi-host store"))
+
+        # 2. two rank processes sharing the card (gloo, file://)
+        torch.cuda.empty_cache()
+        np.save(os.path.join(tmp, "co.npy"), hco)
+        np.save(os.path.join(tmp, "su.npy"), hsu.astype(np.int32))
+        rb = MH.shard_bounds(hco, PARALLEL_RANKS)
+        digests = [hashlib.sha256(hsu[hco[lo]:hco[hi]].astype(np.int32)
+                                  .tobytes()).hexdigest()
+                   for lo, hi in zip(rb[:-1], rb[1:])]
+        t_spawn = time.time()
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_parallel_rank,
+                                 args=(tmp, digests, t_spawn),
+                                 nprocs=PARALLEL_RANKS, join=False,
+                                 start_method="spawn")
+        # meanwhile, on the host: the encode the merge must equal
+        t1 = time.perf_counter()
+        gb, _gbits, ob, _obits, _st = native.bv_encode(
+            hco, hsu, s, threads=PARALLEL_RANKS)
+        native2_s = time.perf_counter() - t1
+        want = [hashlib.sha256(b.tobytes()).hexdigest() for b in (gb, ob)]
+        del gb, ob
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > RANK_DEADLINE_S:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the ranks ran past "
+                                     f"{RANK_DEADLINE_S} s")
+        ranks_s = time.perf_counter() - t0
+        rbase = os.path.join(tmp, "ranks")
+        if [_sha256(rbase + ext) for ext in (".graph", ".offsets")] != want:
+            raise AssertionError(f"the {PARALLEL_RANKS} ranks' merge differs "
+                                 f"from native.bv_encode(threads="
+                                 f"{PARALLEL_RANKS})")
+        with open(os.path.join(tmp, "ranks.json")) as f:
+            ranks = json.load(f)
+        out["ranks"] = dict(ranks=PARALLEL_RANKS, backend="gloo",
+                            shard_bounds=rb.tolist(), wall_s=ranks_s,
+                            native_threads_encode_s=native2_s,
+                            merge_byte_identical=True, shards_equal=True,
+                            per_rank=ranks)
+
+        # 3. the sharded kernel decode of the slice's resolved plan
+        data, offsets, _n, _m, _s, _src, _t = synth_input(n)
+        outd = native.decode_outdegrees(data, offsets, s.outdegree_coding)
+        plan = kplan.plan_kernel_decode(offsets, outd, s, data, device=dev)
+        resolve_halos(plan)
+        _co, want_succ, _filled = decode_to_csr(plan)
+        if not torch.equal(want_succ, graph.succ):
+            raise AssertionError("the unsharded decode differs")
+        one_ms = min(cuda_ms(lambda: kdecode.decode_chunked(plan))
+                     for _ in range(3))
+        shares = {}
+        for D in PARALLEL_SHARES:
+            mesh = (SH.make_mesh() if D == 1
+                    else SH.make_mesh(["cuda:0"] * D))
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            store, diag = SH.decode_sharded_kernel(plan, mesh)
+            torch.cuda.synchronize()
+            launched = _build.LAUNCHES["bv_decode_lanes"]
+            if launched != D:
+                raise AssertionError(f"{D} shares launched B1 {launched} "
+                                     f"times")
+            if bool(kdecode.lanes_flagged(plan, diag).any()):
+                raise AssertionError(f"{D} shares flagged lanes")
+            got = kcompact.compact(plan.compact_plan, store)
+            if not torch.equal(got, want_succ):
+                raise AssertionError(f"{D} shares differ from the "
+                                     f"unsharded decode")
+            del got, store, diag
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                SH.decode_sharded_kernel(plan, mesh)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            shares[D] = dict(devices=[str(d) for d in mesh],
+                             b1_launches=launched, call_ms=min(times),
+                             equal_to_unsharded=True)
+        out["sharded_kernel"] = dict(lanes=plan.lanes,
+                                     unsharded_b1_ms=one_ms, shares=shares)
+        del plan, want_succ
+        torch.cuda.empty_cache()
+
+        # 4. the sharded whole decode, one node range per listed device
+        mesh = SH.make_mesh(["cuda:0"] * PARALLEL_DECODE_DEVICES)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        dco, dsu = SH.decode_sharded(data, offsets, s, mesh)
+        ds_s = time.perf_counter() - t0
+        launches = {k: _build.LAUNCHES[k] for k in KERNELS}
+        _decoded(launches, "decode_sharded")
+        if not (np.array_equal(dco, hco) and np.array_equal(dsu, hsu)):
+            raise AssertionError("decode_sharded differs from the native "
+                                 "decode")
+        out["decode_sharded"] = dict(devices=[str(d) for d in mesh],
+                                     seconds=ds_s, launches=launches,
+                                     equal_to_native=True)
+        del dco, dsu, data, offsets, outd
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(peak_bytes=torch.cuda.max_memory_allocated(),
+               seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _pack_profile(graph, s) -> dict:
     """``profile_window`` over the pack of the slice's first chunk (its
     nodes' references selected over its own cost matrix)."""
@@ -1770,6 +2033,7 @@ def main() -> int:
     emit("labels", phase_labels(dev, card, **ctx,
                                 digest=enc["slice_digest"]))
     emit("cli", phase_cli(dev, card, **ctx))
+    emit("parallel", phase_parallel(dev, card, **ctx))
     emit("analytics", phase_analytics(dev, **ctx))
     del ctx
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),

@@ -651,3 +651,76 @@ def test_sliced_decode_launches_per_slice(cuda):
         seen.append(_b1_b2())
         _build.reset_launches()
     assert len(seen) >= 3 and all(b1 >= 1 and b2 >= 1 for b1, b2 in seen)
+
+
+def _shard_graph(n=6000, seed=6):
+    s = BVGraphSettings()
+    co, su = E.simple(*synthesize_webgraph(n, seed=seed))
+    graph, _gb, offs, _ob, _st = native.bv_encode(co, su, s, threads=1)
+    offsets = native.decode_offset_stream(offs, len(co) - 1,
+                                          s.offset_coding)
+    return s, co, su, graph, offsets
+
+
+def test_decode_sharded_kernel_on_card_matches_cpu(cuda):
+    """Two shares on the card (one device listed twice): one B1 launch
+    each, the store and the diagnostics equal to the CPU run."""
+    from webgraph_tpu_torch.parallel.sharded import decode_sharded_kernel
+    s, co, su, graph, offsets = _shard_graph()
+    runs = {}
+    for dev, devices in ((cuda, ["cuda:0"] * 2), (torch.device("cpu"),
+                                                  ["cpu"] * 2)):
+        plan = PP.plan_kernel_decode(offsets, np.diff(co), s, graph,
+                                     device=dev)
+        resolve_halos(plan)
+        PC.plan_csr_index(plan)
+        _build.reset_launches()
+        store, diag = decode_sharded_kernel(plan, devices)
+        runs[dev.type] = (store.cpu(), diag.cpu(),
+                          PKC.compact(plan.compact_plan, store).cpu())
+        if dev.type == "cuda":
+            assert _build.LAUNCHES["bv_decode_lanes"] == 2
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert torch.equal(a, b)
+    assert torch.equal(runs["cuda"][2].to(torch.int64), torch.from_numpy(su))
+
+
+def test_store_multihost_cuda_on_card_matches_native(cuda, tmp_path):
+    from webgraph_tpu_torch.core.graph import CSRGraph
+    from webgraph_tpu_torch.parallel import multihost as MH
+    s, co, su, _graph, _offsets = _shard_graph()
+    g = CSRGraph(co, su, device=cuda)
+    for backend in ("cuda", "native"):
+        MH.store_multihost(g, str(tmp_path / backend), 3, settings=s,
+                           backend=backend)
+    gb, _b, ob, _o, _st = native.bv_encode(co, su, s, threads=3)
+    props = []
+    for backend in ("cuda", "native"):
+        base = str(tmp_path / backend)
+        assert (tmp_path / (backend + ".graph")).read_bytes() == gb.tobytes()
+        assert (tmp_path / (backend + ".offsets")).read_bytes() == \
+            ob.tobytes()
+        with open(base + ".properties", encoding="iso-8859-1") as f:
+            lines = f.read().split("\n")
+        del lines[1]   # the date comment
+        props.append(lines)
+    assert props[0] == props[1]
+
+
+def test_plan_shard_decode_on_card(cuda, tmp_path):
+    """The second of three shards, planned cold on the card and decoded
+    through B1 and B2, equals its range of the graph."""
+    from webgraph_tpu_torch.codecs.bvgraph import BVGraph
+    from webgraph_tpu_torch.core.graph import CSRGraph
+    from webgraph_tpu_torch.parallel import multihost as MH
+    s, co, su, _graph, _offsets = _shard_graph()
+    base = str(tmp_path / "g")
+    BVGraph.store(CSRGraph(co, su, device="cpu"), base, settings=s)
+    bv = BVGraph.load(base)
+    _build.reset_launches()
+    plan, lo, hi = MH.plan_shard_decode(bv, bv.data, 1, 3)
+    assert plan.device == cuda and 0 < lo < hi < len(co) - 1
+    pco, succ, filled = PC.decode_to_csr(plan)
+    assert filled == 0 and min(_b1_b2()) >= 1
+    np.testing.assert_array_equal(pco, co[lo:hi + 1] - co[lo])
+    np.testing.assert_array_equal(succ.cpu().numpy(), su[co[lo]:co[hi]])

@@ -83,6 +83,7 @@ def test_importing_the_port_loads_no_jax():
         "from webgraph_tpu_torch.core import incremental, wrap, wrappers\n"
         "from webgraph_tpu_torch.utils import hostmap, progress\n"
         "from webgraph_tpu_torch.ops import bigdecode\n"
+        "from webgraph_tpu_torch.parallel import multihost, sharded\n"
         "import webgraph_tpu_torch.typed, webgraph_tpu_torch.cli\n"
         "import webgraph_tpu_torch.cli.main\n"
         "import chip_smoke\n"
@@ -108,9 +109,11 @@ HOST_LAYER = ("cli", "cli.main", "codecs.ascii", "codecs.intlist",
               "codecs.scattered", "core.incremental", "core.wrap",
               "core.wrappers", "typed", "utils.hostmap", "utils.progress",
               "ops.bigdecode")
+# the modules ported in the tenth slice: multi-host and multi-device
+PARALLEL = ("parallel", "parallel.multihost", "parallel.sharded")
 
 
-@pytest.mark.parametrize("mod", HOST_LAYER)
+@pytest.mark.parametrize("mod", HOST_LAYER + PARALLEL)
 def test_host_layer_module_mirrors_the_jax_one(mod):
     import importlib
     port = importlib.import_module("webgraph_tpu_torch." + mod)

@@ -12,7 +12,9 @@ Warm plans (``halo_csr`` given) write the halo lists into the store up
 front.  Cold plans see only the stream and its offsets, as the reference's
 loader does (BVGraph.java:1479-1574): references come from the native
 header-only scan, and the halo values are resolved by wavefront passes of
-the decode itself (``resolve.resolve_halos``).
+the decode itself (``resolve.resolve_halos``).  A cold plan that starts past
+node 0 (``first_node``, a shard's plan) decodes on the host, at plan time,
+the lists of predecessors before its first node: no lane holds them.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from .. import native as _native
 from .bitstream import stream_words
 from .kdecode import (M_BASE, M_BIT, M_NODES, M_SEG, M_WCUR0, M_WIN, M_X,
                       KernelSpec, LanePlan, nmeta)
+from .resolve import pred_values as _pred_values
 
 # a lane's step count is ~ its arcs plus ~STATE_COST header steps per node:
 # chunks balance that cost, not raw arcs (equal-arc chunks hand sparse
@@ -58,8 +61,9 @@ def _needed_preds(starts, ends, refs, W, n):
 def chain_depths(refs, bounds, maxref: int):
     """Per-node pass after which the node's list is right in the store of a
     cold plan: 1 + the chunk-boundary crossings on its reference chain
-    (chains are <= max_ref_count hops, BVGraph.java:455).  Returns (D, first
-    node)."""
+    (chains are <= max_ref_count hops, BVGraph.java:455).  A chain ends at
+    a node whose reference lies before the first node: that list is
+    decoded on the host, right from the start.  Returns (D, first node)."""
     first = int(bounds[0])
     n_end = int(bounds[-1])
     cnt = (bounds[1:] - bounds[:-1]).astype(np.int64)
@@ -67,8 +71,8 @@ def chain_depths(refs, bounds, maxref: int):
     nn = n_end - first
     x = np.arange(first, n_end, dtype=np.int64)
     r = np.asarray(refs[first:n_end], dtype=np.int64)
-    valid = r > 0
     src = x - r
+    valid = (r > 0) & (src >= first)
     src_i = np.clip(src - first, 0, max(nn - 1, 0))
     cross = (src < cs).astype(np.int16)
     D = np.ones(nn, dtype=np.int16)
@@ -189,6 +193,20 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
         # predecessor's own chunk: recorded as a (dst, src, cnt) triple and
         # copied by resolve_halos once the source is right
         c_y = np.searchsorted(bounds, ys_sel, side="right") - 1
+        # a predecessor before the first decoded node (shard plans with
+        # first_node > 0) or in an empty lane has no device source: its
+        # list is decoded on the host here and written in place
+        on_dev = (ys_sel >= bounds[0]) & active[np.maximum(c_y, 0)]
+        if not on_dev.all():
+            off = ~on_dev
+            c_off = cnt[off]
+            hval = _pred_values(data, settings, offsets, outd, node_base,
+                                ys_sel[off], c_off)
+            hdst = np.repeat(dst0[off], c_off) + _within(c_off)
+            store[torch.from_numpy(hdst).to(device)] = torch.from_numpy(
+                hval.astype(np.int32)).to(device)
+            dst0, cnt, ys_sel, c_y = (a[on_dev] for a in (dst0, cnt, ys_sel,
+                                                         c_y))
         src0 = store_off[c_y] + halo[c_y] + (cum[ys_sel] - cum[starts[c_y]])
         D, d_first = chain_depths(refs, bounds, settings.max_ref_count)
         wf = dict(wf_dst0=dst0, wf_src0=src0, wf_nodes=ys_sel, wf_cnt=cnt,

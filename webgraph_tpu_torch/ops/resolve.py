@@ -26,11 +26,13 @@ from ..core.graph import expand_ranges
 from .kdecode import LanePlan, check_diag, decode_chunked
 
 
-def host_pred_values(plan: LanePlan, ys, cnts) -> np.ndarray:
-    """Host-decode the lists of predecessors ``ys`` (native range decode
-    from y - W*max_ref_count, the chain bound BVGraph.java:455), flattened
-    per request."""
-    settings = plan.settings
+def pred_values(data, settings, offsets, outdegrees, node_base: int, ys,
+                cnts) -> np.ndarray:
+    """Host-decode the lists of predecessors ``ys`` (plan-local ids; native
+    range decode from y - W*max_ref_count, the chain bound
+    BVGraph.java:455), flattened per request: the first ``cnts[i]`` values
+    of y_i's list.  ``offsets``/``outdegrees``: plan-local bit offsets and
+    outdegrees; ``node_base``: global id of plan-local node 0."""
     ys = np.asarray(ys, dtype=np.int64)
     cnts = np.asarray(cnts, dtype=np.int64)
     uy, inv = np.unique(ys, return_inverse=True)
@@ -41,16 +43,16 @@ def host_pred_values(plan: LanePlan, ys, cnts) -> np.ndarray:
     if W > 0:
         yj = p[:, None] - 1 - np.arange(W, dtype=np.int64)[None, :]
         ok = yj >= 0
-        init[ok] = plan.outdegrees[yj[ok]]
-    d = plan.outdegrees[uy]
+        init[ok] = outdegrees[yj[ok]]
+    d = outdegrees[uy]
     uo = np.zeros(len(uy) + 1, dtype=np.int64)
     np.cumsum(d, out=uo[1:])
     succ = np.empty(max(int(uo[-1]), 1), dtype=np.int64)
-    dpad = np.concatenate([plan.data, np.zeros(16, dtype=np.uint8)])
-    _native.bv_fill_ranges(dpad, settings, p + plan.node_base,
-                           uy + plan.node_base, uy + 1 + plan.node_base,
-                           plan.offsets[p], init, uo[:-1], d, succ,
-                           threads=os.cpu_count() or 1, padded=True)
+    dpad = np.concatenate([np.asarray(data, dtype=np.uint8),
+                           np.zeros(16, dtype=np.uint8)])
+    _native.bv_fill_ranges(dpad, settings, p + node_base, uy + node_base,
+                           uy + 1 + node_base, offsets[p], init, uo[:-1], d,
+                           succ, threads=os.cpu_count() or 1, padded=True)
     within = (np.arange(int(cnts.sum()), dtype=np.int64)
               - np.repeat(np.cumsum(cnts) - cnts, cnts))
     return succ[np.repeat(uo[inv], cnts) + within]
@@ -79,8 +81,9 @@ def resolve_halos(plan: LanePlan) -> int:
             errs = check_diag(plan, diag)
             bad = errs[plan.wf_chunk] != 0
             if bad.any():
-                vals = host_pred_values(plan, plan.wf_nodes[bad],
-                                        plan.wf_cnt[bad])
+                vals = pred_values(plan.data, plan.settings, plan.offsets,
+                                   plan.outdegrees, plan.node_base,
+                                   plan.wf_nodes[bad], plan.wf_cnt[bad])
                 dst = expand_ranges(plan.wf_dst0[bad], plan.wf_cnt[bad], dev)
                 store[dst] = torch.from_numpy(vals.astype(np.int32)).to(dev)
                 _drop_lists(plan, ~bad)

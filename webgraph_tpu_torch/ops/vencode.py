@@ -913,7 +913,7 @@ def chunk_bounds_by_arcs(co, target_arcs: int) -> np.ndarray:
 
 def encode_csr_chunked(co, succ, settings,
                        chunk_arcs: int = DEFAULT_CHUNK_ARCS, device=None,
-                       split: Optional[dict] = None):
+                       split: Optional[dict] = None, node_base: int = 0):
     """Chunked device encode of a whole CSR graph with single-stream
     semantics (byte-identical to ``encode_csr`` and the ``"python"``
     encoder): per-chunk device passes over ~chunk_arcs arcs, W-node halos
@@ -925,8 +925,10 @@ def encode_csr_chunked(co, succ, settings,
     offsets come to the host once (8 bytes a node, for the chunk bounds and
     the selection); the successors never do.  ``split``: a dict to fill
     with the seconds of each stage (each ends in a synchronise) and the
-    chunk count.  Returns (graph_bytes, graph_bits, node_starts int64[n] on
-    the device, stats int64[138] numpy)."""
+    chunk count.  ``node_base``: global id of local node 0 (a node range of
+    a larger graph, encoded as one of the reference's per-thread ranges).
+    Returns (graph_bytes, graph_bits, node_starts int64[n] on the device,
+    stats int64[138] numpy)."""
     dev = _device(succ, device)
     co = _on(co, dev, _I64)
     succ = _on(succ, dev, _I32)
@@ -946,7 +948,8 @@ def encode_csr_chunked(co, succ, settings,
         lo, hi = int(bounds[i]), int(bounds[i + 1])
         h = min(W, lo)
         a0 = int(co_h[lo - h])
-        A = _Arcs(co[lo - h:hi + 1] - a0, succ[a0:int(co_h[hi])], lo - h)
+        A = _Arcs(co[lo - h:hi + 1] - a0, succ[a0:int(co_h[hi])],
+                  node_base + lo - h)
         down, up = _member_masks_dev(A.seg, A.v, W)
         tick("arcs_masks_s")
         return lo, hi, h, A, down, up
