@@ -30,7 +30,9 @@ Phases, each printing one line:
    to its plain version (at a smaller step count where the plain version
    at the full count would take too long; the line says which);
 5. slice: the synthetic graph is generated and encoded (cached in
-   ``.bench_synth_<N>.npz``), then plan -> resolve_halos -> decode_to_csr
+   ``.bench_synth_<N>.npz``; on the host, in a thread beside the kernels
+   phase, whose times the line marks so), then plan -> resolve_halos ->
+   decode_to_csr
    -> ``CSRGraph.from_decoded`` -> device_round with launch counts reset
    just before and read just after; then timings; B1's steps per arc and
    its slowest lane launched alone; a ``torch.profiler`` window over one
@@ -44,9 +46,10 @@ Phases, each printing one line:
    encoder), read back to the card with ``load_csr(basename)`` -- the
    cold plan, the resolve passes and ``decode_to_csr``, so B1 and B2, with
    launch counts reset just before and read just after -- and held
-   ``torch.equal`` to it; the native decode's host CSR is written as an
-   EFGraph (``EFGraph.store``, the bulk numpy writer), decoded on the card
-   (``EFGraph.to_device``, torch ops) and held equal to it too; the line
+   ``torch.equal`` to it; a 1,000,000-node synthetic (``OFFLINE_NODES``:
+   the EF bulk store is numpy on the host, ~100 s at the slice) is written
+   as an EFGraph (``EFGraph.store``, the bulk numpy writer), decoded on
+   the card (``EFGraph.to_device``, torch ops) and held equal to it; the line
    gives each format's file sizes, bits per link, store and load seconds,
    the decode stages, the EF decode's rate and peak bytes, its split into
    the plan (upload, outdegrees) and decodes of the resident stream (one
@@ -63,8 +66,9 @@ Phases, each printing one line:
    the four is read back with ``load_csr`` -- launch counts reset just
    before, B1 and B2 launched -- and held ``torch.equal`` to the graph
    stored.  Then ``transpose_offline`` and ``symmetrize_offline`` of a
-   1,000,000-node synthetic, in 5 batches or more, merged and stored with
-   the device encoder and read back equal to the in-memory transforms.
+   1,000,000-node synthetic (``OFFLINE_NODES``), in 5 batches or more,
+   merged and stored with the device encoder and read back equal to the
+   in-memory transforms.
    The line gives each store's seconds and rate, its split (setup, arc
    arrays and masks, cost matrix, its copy to the host, ``select_refs``,
    pack, concatenation, offsets, file writes), its peak device bytes above
@@ -72,7 +76,15 @@ Phases, each printing one line:
    matrix's copy rate; one chunk's pack under ``torch.profiler``; the tie
    groups; and the card.  Everything it made is freed before the next
    phase; then labels: two label streams stored and loaded with the slice,
-   and the labelled transforms and SCC;
+   and the labelled transforms and SCC; then list labels
+   (``FixedWidthIntListLabel(A,20)``, about one entry an arc): stored with
+   the slice on the card, the files checked bit by bit, read back with
+   ``to_device`` (the threaded native list decode, one upload), filter
+   and SCC with a list predicate; at 1,000,000 nodes the offline
+   transpose twice, the offline symmetrize and the union with a
+   concatenation merge (checked pair by pair), ``iter_labelled`` against
+   the bulk merge, the store byte-equal to the native backend's on the
+   host; at 100,000 nodes ``compose_labelled`` under a list semiring;
 8. cli: the command line (``webgraph_tpu_torch/cli``) as a user runs it,
    on the slice stored once as a BVGraph basename in ``.cli_smoke_*/``
    under the checkout (removed at the end).  ``python -m
@@ -121,7 +133,14 @@ Phases, each printing one line:
    certified BFS distances; and the dense, systolic/local and external
    HyperBall modes on the 20,000-node check graph, register- and
    NF-equal.  The analytics launch no hand-written kernel (torch ops
-   only): the line reads the counts, reset just before.
+   only): the line reads the counts, reset just before;
+11. big: a graph past 2^31 arcs (2^27 nodes, about 2.28G arcs, a stream
+   past 2^32 bits), generated on the card and encoded on every host
+   thread in node ranges of 2^24, joined by ``merge_shards``, decoded by
+   ``decode_big_slices`` in slices of 2^27 arcs -- launch counts reset
+   before each slice, B1 and B2 launched in every one, each slice equal
+   to the generator on the kernel route -- then the whole basename through
+   ``load_csr``, equal to the generator or raising before any launch.
 
 Then one JSON line of the kernels (both main-path kernels and the 23 probe
 sites, each with its launches, times, bound and library time), and last
@@ -207,8 +226,9 @@ SAMPLE = 2000
 CENTRALITY_SOURCES = 32
 CENTRALITY_CHECKED = 4
 # the encode phase's offline transforms and the cli phase's text formats: a
-# smaller graph (the batches are merged on the host by a per-node heap) cut
-# into this many batches or more
+# smaller graph cut into this many batches or more; the EF bulk store
+# (numpy on the host, ~100 s at the slice) runs at OFFLINE_NODES too, so
+# that the whole script stays inside its time limit
 OFFLINE_NODES = 1_000_000
 OFFLINE_BATCHES = 5
 # the labels phase: the geometric distribution of the gamma-coded labels
@@ -218,9 +238,35 @@ LABEL_GEOMETRIC_P = 0.2
 LABEL_KEEP_BELOW = 500
 COMPOSE_NODES = 100_000
 COMPOSE_SAMPLE = 300
+# the labels phase's list labels: FixedWidthIntListLabel("A", 20), as
+# anchor-text word ids; each arc's length geometric(p = 0.5) - 1 (mean 1,
+# half the lists empty), its entries a seeded hash of (source, target, j)
+# mod 2^20; the list predicate keeps the arcs whose list holds an entry
+# below 2^10; iter_labelled is checked on 1,000 nodes in 4 windows
+LIST_WIDTH = 20
+LIST_GEOMETRIC_P = 0.5
+LIST_SEED = 29
+LIST_KEEP_BELOW = 1 << 10
+LIST_ITER_NODES = 1000
+LIST_ITER_WINDOWS = 4
+# the hash of the list entries and of the big phase's graph: splitmix64's
+# finaliser on int64, the multipliers as signed int64
+K_X = -7046029254386353131      # 0x9E3779B97F4A7C15
+K_J = 7150378442421005337       # 0x633B3F4F1E1D6C19
+K_1 = -4658895280553007687      # 0xBF58476D1CE4E5B9
+K_2 = -7723592293110705685      # 0x94D049BB133111EB
+M62 = (1 << 62) - 1
+
+
+# host-clock seconds from one line to the next: each phase's wall time,
+# given in the total line
+_WALL = {"last": time.perf_counter(), "lines": {}}
 
 
 def emit(tag: str, obj) -> None:
+    now = time.perf_counter()
+    _WALL["lines"][tag] = now - _WALL["last"]
+    _WALL["last"] = now
     print(f"{tag} {json.dumps(obj)}", flush=True)
 
 
@@ -348,6 +394,10 @@ def _compact_vs_plain(dev, errors: Errors, what: str, arcs, gap,
 
 
 def phase_kernels(dev, errors: Errors) -> None:
+    """B1 on a small synthetic under every check setting (and a garbled
+    stream) and B2 on random run tables, each against its plain version.
+    ``main`` runs it beside the slice's synthetic encode on the host, so
+    each row names that load (``timed_beside``)."""
     co, su = synthesize_webgraph(CHECK_NODES, seed=3)
     n = CHECK_NODES
     rows = []
@@ -392,7 +442,8 @@ def phase_kernels(dev, errors: Errors) -> None:
     rows.append(_compact_vs_plain(dev, errors, "compact_short_runs", short,
                                   rng.integers(0, 4, size=R),
                                   np.ones(R, bool)))
-    emit("kernels", rows)
+    beside = "the slice's synthetic made and encoded on every host core"
+    emit("kernels", [dict(r, timed_beside=beside) for r in rows])
 
 
 def phase_probes(dev, errors: Errors) -> dict:
@@ -666,10 +717,18 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
             raise AssertionError("load_csr differs from the slice's CSR")
         del g
 
-        # EFGraph: written from the host CSR, decoded on the card
+        # EFGraph at OFFLINE_NODES (its bulk store is numpy on the host,
+        # ~100 s at the slice): written from the host CSR, decoded on the
+        # card
+        eco, esu = synthesize_webgraph(OFFLINE_NODES, seed=1)
+        if int(esu.max(initial=-1)) >= OFFLINE_NODES:
+            raise AssertionError("a successor at or above n: no EF upper "
+                                 "bound")
+        ef_graph = CSRGraph(eco, esu, device=dev)
         t0 = time.perf_counter()
-        EFGraph.store(CSRGraph(hco, hsu, device="cpu"), ef)
+        EFGraph.store(CSRGraph(eco, esu, device="cpu"), ef)
         ef_store_s = time.perf_counter() - t0
+        del eco, esu
         t0 = time.perf_counter()
         efg = EFGraph.load(ef)
         ef_load_s = time.perf_counter() - t0
@@ -680,11 +739,12 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
         torch.cuda.synchronize()
         ef_peak = torch.cuda.max_memory_allocated() - resident
         ef_s = g.report["ef_decode_s"]
-        if not (g.device == dev and torch.equal(g.offsets, graph.offsets)
-                and torch.equal(g.succ, graph.succ)):
+        ef_m = ef_graph.num_arcs
+        if not (g.device == dev and torch.equal(g.offsets, ef_graph.offsets)
+                and torch.equal(g.succ, ef_graph.succ)):
             raise AssertionError("EFGraph.to_device differs from the "
-                                 "slice's CSR")
-        del g
+                                 "graph stored")
+        del g, ef_graph
         # where ef_decode_s goes: the plan (upload, outdegrees, arc count),
         # then decodes of the resident stream, one under the profiler
         t0 = time.perf_counter()
@@ -706,7 +766,9 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
     torch.cuda.empty_cache()
     return dict(
         card=card, nodes=n, arcs=m, sizes=sizes,
-        bits_per_link={k: v["graph"] * 8 / m for k, v in sizes.items()},
+        ef_nodes=OFFLINE_NODES, ef_arcs=ef_m,
+        bits_per_link={"BVGraph": sizes["BVGraph"]["graph"] * 8 / m,
+                       "EFGraph": sizes["EFGraph"]["graph"] * 8 / ef_m},
         store_s={"BVGraph": bv_store_s, "EFGraph": ef_store_s},
         load_s={"BVGraph": rep["load_s"], "EFGraph": ef_load_s},
         route=rep["route"], plan_s=rep["plan_s"],
@@ -714,7 +776,7 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
         decode_to_csr_s=rep["decode_to_csr_s"],
         fallback_arcs=rep["fallback_arcs"], load_csr_s=bv_total_s,
         launches=launches, ef_decode_s=ef_s,
-        ef_decode_Medges_per_s=m / ef_s / 1e6,
+        ef_decode_Medges_per_s=ef_m / ef_s / 1e6,
         ef_decode_peak_bytes=ef_peak, ef_resident_bytes=resident,
         ef_plan_s=ef_plan_s, ef_resident_decode_s=min(ef_steady_s),
         ef_profile=ef_profile, equal_to_slice=True)
@@ -903,27 +965,71 @@ def _timed(fn) -> tuple:
             torch.cuda.max_memory_allocated() - resident)
 
 
+def _beside(fn):
+    """Start ``fn()`` in a thread beside the caller's work (a native call or
+    a numpy operation releases the interpreter's lock); returns ``wait()``,
+    which joins it and gives (its result, its seconds on the host clock),
+    or raises what it raised."""
+    import threading
+    box = {}
+
+    def run() -> None:
+        t0 = time.perf_counter()
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # re-raised by wait()
+            box["err"] = e
+        box["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def wait() -> tuple:
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"], box["s"]
+
+    return wait
+
+
+def _in_chunks(fn, m: int, step: int = 1 << 24) -> None:
+    """``fn(a, b)`` over the chunks [a, b) of [0, m), on every host core
+    (numpy's array operations release the interpreter's lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        list(ex.map(lambda a: fn(a, min(a + step, m)), range(0, m, step)))
+
+
 def fixed_fields_numpy(data: np.ndarray, m: int, w: int) -> np.ndarray:
     """The m ``w``-bit (w <= 16) MSB-first fields at bits 0, w, 2w, ...
     of a byte stream, in numpy on the host (independent of the port's
     codec): a 24-bit window from each field's first byte."""
     d = np.concatenate([data, np.zeros(4, np.uint8)])
     out = np.empty(m, dtype=np.int64)
-    for a in range(0, m, 1 << 25):
-        b = min(a + (1 << 25), m)
+
+    def chunk(a: int, b: int) -> None:
         p = np.arange(a, b, dtype=np.int64) * w
         at = p >> 3
         win = ((d[at].astype(np.int64) << 16) | (d[at + 1].astype(np.int64)
                                                   << 8) | d[at + 2])
         out[a:b] = (win >> (24 - (p & 7) - w)) & ((1 << w) - 1)
+
+    _in_chunks(chunk, m)
     return out
 
 
 def gamma_bits_numpy(v: np.ndarray) -> np.ndarray:
     """Length of each value's gamma code, 2 floor(log2(v + 1)) + 1 (exact
     for v + 1 below 2**50)."""
-    return 2 * np.floor(np.log2(v.astype(np.float64) + 1)).astype(
-        np.int64) + 1
+    out = np.empty(len(v), dtype=np.int64)
+
+    def chunk(a: int, b: int) -> None:
+        out[a:b] = 2 * np.floor(np.log2(v[a:b].astype(np.float64) + 1)
+                                ).astype(np.int64) + 1
+
+    _in_chunks(chunk, len(v))
+    return out
 
 
 def _arc_keys(g) -> torch.Tensor:
@@ -1075,6 +1181,11 @@ def phase_labels(dev, card: str, graph, hco, hsu, digest: dict) -> dict:
         out["full_scale"] = steps
         out["offline"] = _labels_offline(dev, gen, tmp)
         out["compose"] = _labels_compose(dev, gen)
+        torch.cuda.empty_cache()
+        out["lists"] = _labels_lists(dev, graph, tmp, digest, gen)
+        torch.cuda.empty_cache()
+        out["lists_offline"] = _labels_lists_offline(dev, gen, tmp)
+        out["lists_compose"] = _labels_lists_compose(dev, gen)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1170,6 +1281,410 @@ def _labels_compose(dev, gen) -> dict:
         sub.outdegrees()[sub.succ.to(torch.int64)].sum()),
         arcs_out=c.num_arcs, seconds=secs, peak_above_resident=peak,
         sampled_nodes=COMPOSE_SAMPLE)
+
+
+# ---- the labels phase's list labels ------------------------------------
+
+
+def _srl(h: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 values."""
+    return (h >> k) & ((1 << (64 - k)) - 1)
+
+
+def mix64(h: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finaliser on int64 values, cut to [0, 2^62)."""
+    h = h ^ _srl(h, 30)
+    h = h * K_1
+    h = h ^ _srl(h, 27)
+    h = h * K_2
+    h = h ^ _srl(h, 31)
+    return h & M62
+
+
+def _ragged_rows(counts: torch.Tensor, rows: torch.Tensor) -> tuple:
+    """(counts of the rows, the positions of their entries) of rows
+    ``rows`` (any order, repeats allowed) of a ragged batch with
+    ``counts``, in torch ops written here rather than taken from the port
+    under test."""
+    off = torch.zeros(counts.numel() + 1, dtype=torch.int64,
+                      device=counts.device)
+    torch.cumsum(counts, 0, out=off[1:])
+    c = counts[rows]
+    total = int(c.sum())
+    starts = torch.cumsum(c, 0) - c
+    pos = (torch.repeat_interleave(off[rows] - starts, c, output_size=total)
+           + torch.arange(total, device=counts.device))
+    return c, pos
+
+
+def list_labels(src: torch.Tensor, tgt: torch.Tensor, gen) -> tuple:
+    """(counts, entries) of the arcs (src, tgt) on their device: lengths
+    geometric(p) - 1, entry j of arc (x, y) the hash of (x, y, j) mod
+    2^LIST_WIDTH."""
+    dev = src.device
+    m = src.numel()
+    counts = torch.empty(m, dtype=torch.float64, device=dev).geometric_(
+        LIST_GEOMETRIC_P, generator=gen).to(torch.int64) - 1
+    arc = torch.repeat_interleave(torch.arange(m, device=dev), counts)
+    first = torch.cumsum(counts, 0) - counts
+    j = torch.arange(arc.numel(), device=dev) - first[arc]
+    del first
+    h = src[arc] * K_X + tgt[arc].to(torch.int64) * K_J + j * K_1
+    del arc, j
+    return counts, mix64(h + LIST_SEED) & ((1 << LIST_WIDTH) - 1)
+
+
+def holds_below(t: int):
+    """A list predicate: the arc's list holds an entry below ``t``."""
+    def pred(values, src, tgt) -> torch.Tensor:
+        counts, entries = values
+        arc = torch.repeat_interleave(
+            torch.arange(counts.numel(), device=counts.device), counts,
+            output_size=entries.numel())
+        hit = torch.zeros(counts.numel(), dtype=torch.bool,
+                          device=counts.device)
+        hit[arc[entries < t]] = True
+        return hit
+    return pred
+
+
+def _read_fields(stream: torch.Tensor, pos: torch.Tensor,
+                 nbits: torch.Tensor) -> torch.Tensor:
+    """The ``nbits``-bit (at most 33) MSB-first field at each bit position
+    of a byte stream on the card (with >= 5 guard bytes): a 40-bit window
+    from each field's first byte."""
+    b = pos >> 3
+    win = torch.zeros_like(pos)
+    for i in range(5):
+        win = (win << 8) | stream[b + i].to(torch.int64)
+    return (win >> (40 - (pos & 7) - nbits)) & ((1 << nbits) - 1)
+
+
+def _check_list_stream(lbase: str, graph, counts: torch.Tensor,
+                       entries: torch.Tensor) -> dict:
+    """Every bit of ``.labels`` and ``.labeloffsets`` against the labels
+    stored, independently of the port's codec: each arc's label at its
+    bit position (the gamma code of its length -- floor(log2(c + 1))
+    zeros, then the binary of c + 1 -- then w bits per entry), each node's
+    offset where its first arc's label begins, the stream's length and its
+    slack bits zero."""
+    dev = counts.device
+    n, w = graph.num_nodes, LIST_WIDTH
+    data = np.fromfile(lbase + ".labels", dtype=np.uint8)
+    lo = native.decode_offset_stream(
+        np.fromfile(lbase + ".labeloffsets", dtype=np.uint8), n, C.GAMMA)
+    # floor(log2(c + 1)) is frexp's exponent less one (exact; a float log2
+    # on the card may land below an integer)
+    glen = 2 * torch.frexp((counts + 1).to(torch.float64))[1].to(
+        torch.int64) - 1
+    at = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(glen + w * counts, 0, out=at[1:])
+    total = int(at[-1])
+    if not torch.equal(torch.from_numpy(lo).to(dev), at[graph.offsets]):
+        raise AssertionError("labels lists: .labeloffsets differs from "
+                             "the lists' bit lengths")
+    if len(data) != -(-total // 8) or (total % 8 and int(data[-1]) & (
+            (1 << (8 - total % 8)) - 1)):
+        raise AssertionError("labels lists: the stream's length or slack "
+                             "bits are wrong")
+    stream = torch.from_numpy(np.concatenate([data, np.zeros(8, np.uint8)])
+                              ).to(dev)
+    del data
+    off = torch.zeros_like(at)
+    torch.cumsum(counts, 0, out=off[1:])
+    step = 1 << 26
+    for a in range(0, counts.numel(), step):
+        b = min(a + step, counts.numel())
+        if not torch.equal(_read_fields(stream, at[a:b], glen[a:b]),
+                           counts[a:b] + 1):
+            raise AssertionError(f"labels lists: a length code in arcs "
+                                 f"[{a}, {b}) differs")
+        e0, e1 = int(off[a]), int(off[b])
+        arc = torch.repeat_interleave(torch.arange(a, b, device=dev),
+                                      counts[a:b], output_size=e1 - e0)
+        bit = (at[arc] + glen[arc]
+               + w * (torch.arange(e0, e1, device=dev) - off[arc]))
+        if not torch.equal(_read_fields(stream, bit, torch.full_like(bit, w)),
+                           entries[e0:e1]):
+            raise AssertionError(f"labels lists: an entry of arcs [{a}, "
+                                 f"{b}) differs")
+    return dict(bits=total, bits_per_arc=total / max(counts.numel(), 1))
+
+
+def _labels_lists(dev, graph, tmp: str, digest: dict, gen) -> dict:
+    """List labels at the slice's scale: stored with the graph on the card,
+    the files checked bit by bit, read back with ``to_device``, then the
+    filter and the labelled SCC with a list predicate."""
+    proto = LB.FixedWidthIntListLabel("A", LIST_WIDTH)
+    src = arc_sources(graph)
+    vals, gen_s, _ = _timed(lambda: list_labels(src, graph.succ, gen))
+    del src
+    counts, entries = vals
+    out = dict(spec=proto.to_spec(), entries=entries.numel(),
+               empty_lists=int((counts == 0).sum()),
+               longest_list=int(counts.max()), generate_s=gen_s)
+    base = os.path.join(tmp, "lists")
+    lbase = base + "-labels"
+    rep = {}
+    _, out["store_s"], out["store_peak_above_resident"] = _timed(
+        lambda: BVGraph.store_labelled(LB.ArcLabelledGraph(graph, vals,
+                                                           proto),
+                                       base, lbase, backend="cuda",
+                                       report=rep))
+    out.update(graph_encode_s=rep["graph_s"], label_pack_s=rep["labels_s"],
+               label_pack_split=rep["labels_split"],
+               labels_bytes=os.path.getsize(lbase + ".labels"),
+               labeloffsets_bytes=os.path.getsize(lbase + ".labeloffsets"))
+    for ext in (".graph", ".offsets"):
+        if _sha256(base + ext) != digest[ext]:
+            raise AssertionError(f"labels lists: the labelled store's {ext} "
+                                 f"differs from the encode phase's")
+    chk, out["stream_check_s"], _ = _timed(
+        lambda: _check_list_stream(lbase, graph, counts, entries))
+    out.update(chk)
+    _build.reset_launches()
+    back, out["load_s"], out["load_peak_above_resident"] = _timed(
+        lambda: LB.BitStreamArcLabelledGraph.load(lbase).to_device())
+    launches = {k: _build.LAUNCHES[k] for k in KERNELS}
+    _decoded(launches, "labels lists: to_device")
+    if back.report["graph"]["route"] != "kernel":
+        raise AssertionError(f"labels lists: to_device took the "
+                             f"{back.report['graph']['route']} route")
+    _same_csr(back.graph, graph, "labels lists")
+    if not (torch.equal(back.values[0], counts)
+            and torch.equal(back.values[1], entries)):
+        raise AssertionError("labels lists: to_device's lists differ")
+    out.update(launches=launches, graph_decode=back.report["graph"],
+               label_decode_s=back.report["labels_s"],
+               label_decode_split=back.report["labels_split"],
+               stored_and_loaded_equal=True)
+    del back
+    torch.cuda.empty_cache()
+
+    g = LB.ArcLabelledGraph(graph, vals, proto)
+    pred = holds_below(LIST_KEEP_BELOW)
+    mask = pred(vals, None, None)
+    kept, s, p = _timed(lambda: filter_labelled(g, pred))
+    out["filter_labelled"] = dict(seconds=s, peak_above_resident=p,
+                                  kept_arcs=kept.num_arcs)
+    want = TR.filter_arcs(graph, lambda a, b: mask)
+    _same_csr(kept.graph, want, "labels lists: filter_labelled")
+    c, pos = _ragged_rows(counts, torch.nonzero(mask).flatten())
+    if not (torch.equal(kept.values[0], c)
+            and torch.equal(kept.values[1], entries[pos])):
+        raise AssertionError("labels lists: filter_labelled's lists differ")
+    del kept, c, pos
+    info = {}
+    (k, comp), s, p = _timed(
+        lambda: A.strongly_connected_components_labelled(g, pred,
+                                                         stats=info))
+    out["scc_labelled"] = dict(seconds=s, peak_above_resident=p,
+                               components=k, **info)
+    kw, compw = A.strongly_connected_components(want)
+    if k != kw or not torch.equal(comp, compw):
+        raise AssertionError("labels lists: scc_labelled differs from the "
+                             "SCC of filter_arcs on the same mask")
+    return out
+
+
+def _concat_rows(counts: torch.Tensor, a: torch.Tensor, fa: torch.Tensor,
+                 b: torch.Tensor, fb: torch.Tensor) -> tuple:
+    """Row i: row a[i] (where fa[i]) followed by row b[i] (where fb[i]) of
+    a ragged batch with ``counts``: (counts, entry positions)."""
+    rows = torch.stack([a, b], 1).flatten()
+    ok = torch.stack([fa, fb], 1).flatten()
+    c2 = torch.where(ok, counts[rows], 0)
+    _, pos = _ragged_rows(torch.cat([counts, counts.new_zeros(1)]),
+                          torch.where(ok, rows, counts.numel()))
+    return c2.view(-1, 2).sum(1), pos
+
+
+def _labels_lists_offline(dev, gen, tmp: str) -> dict:
+    """List labels at ``OFFLINE_NODES``: the offline transpose twice (the
+    identity), the offline symmetrize with the concatenation merge (pair by
+    pair against ``label(min, max) ++ label(max, min)``), its
+    ``iter_labelled`` on 1,000 nodes against ``to_arc_labelled``, the
+    union with a relabelled copy, and the store on the card held
+    byte-equal to the native backend's on the host."""
+    co, su = synthesize_webgraph(OFFLINE_NODES, seed=1)
+    small = CSRGraph(co, su, device=dev)
+    m = small.num_arcs
+    vals = list_labels(arc_sources(small), small.succ, gen)
+    counts, entries = vals
+    proto = LB.FixedWidthIntListLabel("A", LIST_WIDTH)
+    sg = LB.ArcLabelledGraph(small, vals, proto)
+    batch = -(-m // OFFLINE_BATCHES)
+    res = dict(nodes=small.num_nodes, arcs=m, entries=entries.numel(),
+               batch_size=batch)
+    bt, batch_s, _ = _timed(lambda: TR.transpose_offline_labelled(
+        sg, batch_size=batch, temp_dir=tmp))
+    once, merge_s, merge_peak = _timed(bt.to_arc_labelled)
+    nb = len(bt.batches)
+    bt.cleanup()
+    if nb < 4:
+        raise AssertionError(f"list offline transpose: {nb} batches")
+    _same_csr(once.graph, TR.transpose(small), "list offline transpose")
+    bt2 = TR.transpose_offline_labelled(once, batch_size=batch, temp_dir=tmp)
+    twice = bt2.to_arc_labelled()
+    bt2.cleanup()
+    if not twice.equals_labelled(sg):
+        raise AssertionError("list offline transpose twice is not the "
+                             "identity")
+    res["transpose"] = dict(batches=nb, batch_s=batch_s, merge_s=merge_s,
+                            merge_peak_above_resident=merge_peak)
+    del once, twice
+
+    bs, batch_s, _ = _timed(lambda: TR.symmetrize_offline_labelled(
+        sg, merge=LB.concat_lists, batch_size=2 * batch, temp_dir=tmp))
+    try:
+        sym, merge_s, merge_peak = _timed(bs.to_arc_labelled)
+        if len(bs.batches) < 4 or bs.num_arcs != 2 * m:
+            raise AssertionError(f"list offline symmetrize: "
+                                 f"{len(bs.batches)} batches, "
+                                 f"{bs.num_arcs} pairs spilled")
+        _same_csr(sym.graph, TR.symmetrize(small),
+                  "list offline symmetrize")
+        keys = _arc_keys(small)
+        x = arc_sources(sym.graph)
+        y = sym.graph.succ.to(torch.int64)
+        lo_, hi_ = torch.minimum(x, y), torch.maximum(x, y)
+        idx = torch.arange(m, device=dev)
+        fa, ia = _label_at(keys, idx, (lo_ << 32) | hi_)
+        fb, ib = _label_at(keys, idx, (hi_ << 32) | lo_)
+        c, pos = _concat_rows(counts, ia, fa, ib, fb)
+        if not (bool((fa | fb).all()) and torch.equal(sym.values[0], c)
+                and torch.equal(sym.values[1], entries[pos])):
+            raise AssertionError("list offline symmetrize: a list is not "
+                                 "label(min, max) ++ label(max, min)")
+        res["symmetrize"] = dict(
+            batches=len(bs.batches), arcs=sym.num_arcs,
+            pairs_spilled=bs.num_arcs, batch_s=batch_s, merge_s=merge_s,
+            merge_peak_above_resident=merge_peak,
+            loops=int((x == y).sum()),
+            both_directions=int((fa & fb).sum()))
+        del keys, x, y, lo_, hi_, c, pos
+        # the host merge node by node, in windows of consecutive nodes
+        t0 = time.perf_counter()
+        per = LIST_ITER_NODES // LIST_ITER_WINDOWS
+        sco, ssu = sym.graph.offsets.cpu().numpy(), sym.graph.succ.cpu()
+        scnt = sym.values[0].cpu().numpy()
+        sent = sym.values[1].cpu().numpy()
+        sloff = np.concatenate([[0], np.cumsum(scnt)])
+        rng = np.random.default_rng(31)
+        for x0 in rng.choice(small.num_nodes - per, LIST_ITER_WINDOWS,
+                             replace=False).tolist():
+            it = bs.iter_labelled(x0)
+            for _ in range(per):
+                x, succ, labs = next(it)
+                a, b = sco[x], sco[x + 1]
+                if (succ.tolist() != ssu[a:b].tolist()
+                        or len(labs) != b - a
+                        or any(l.value.tolist()
+                               != sent[sloff[k]:sloff[k + 1]].tolist()
+                               for k, l in zip(range(a, b), labs))):
+                    raise AssertionError(f"list offline symmetrize: "
+                                         f"iter_labelled differs from "
+                                         f"to_arc_labelled at node {x}")
+            it.close()
+        res["symmetrize"]["iter_labelled"] = dict(
+            nodes=LIST_ITER_NODES, seconds=time.perf_counter() - t0)
+        del sym
+    finally:
+        bs.cleanup()
+
+    # the store on the card, then the native backend's on the host
+    base_c = os.path.join(tmp, "lists-cuda")
+    base_n = os.path.join(tmp, "lists-native")
+    _, cuda_s, _ = _timed(lambda: BVGraph.store_labelled(
+        sg, base_c, backend="cuda"))
+    host = LB.ArcLabelledGraph(CSRGraph(co, su, device="cpu"),
+                               (counts.cpu(), entries.cpu()), proto)
+    t0 = time.perf_counter()
+    BVGraph.store_labelled(host, base_n, backend="native")
+    native_s = time.perf_counter() - t0
+    for ext in (".graph", ".offsets", "-labelled.labels",
+                "-labelled.labeloffsets"):
+        _same_bytes(base_c + ext, base_n + ext, f"list store {ext}")
+    res["store_backends"] = dict(cuda_s=cuda_s, native_s=native_s,
+                                 byte_identical=True)
+    del host
+
+    r = LB.relabel(sg, lambda v, a, b: (v[0], v[1] + 1), proto)
+    u, secs, peak = _timed(lambda: LB.union_labelled(sg, r,
+                                                     LB.concat_lists))
+    _same_csr(u.graph, small, "list union_labelled")
+    idx = torch.arange(m, device=dev)
+    ok = torch.ones(m, dtype=torch.bool, device=dev)
+    c, pos = _concat_rows(counts, idx, ok, idx, ok)
+    plus = torch.zeros_like(pos).view(-1)
+    _, second = _ragged_rows(torch.stack([counts, counts], 1).flatten(),
+                             2 * idx + 1)
+    plus[second] = 1
+    if not (torch.equal(u.values[0], c)
+            and torch.equal(u.values[1], entries[pos] + plus)):
+        raise AssertionError("list union_labelled: a list is not l ++ "
+                             "(l + 1)")
+    res["union_labelled"] = dict(seconds=secs, peak_above_resident=peak,
+                                 arcs=u.num_arcs)
+    del u, r
+    return res
+
+
+def _labels_lists_compose(dev, gen) -> dict:
+    """``compose_labelled`` of the first ``COMPOSE_NODES`` nodes of the
+    offline synthetic with itself under the list semiring (concatenation
+    for both ``multiply`` and ``add``); sampled nodes checked against a
+    fold on the host in the JAX path order (g0's arcs in order, then g1's
+    successors in order)."""
+    co, su = synthesize_webgraph(OFFLINE_NODES, seed=1)
+    K = COMPOSE_NODES
+    sub = TR.filter_arcs(CSRGraph(co, su, device=dev).to_csr(0, K),
+                         lambda a, b: b < K)
+    del co, su
+    counts, entries = list_labels(arc_sources(sub), sub.succ, gen)
+    g = LB.ArcLabelledGraph(sub, (counts, entries),
+                            LB.FixedWidthIntListLabel("A", LIST_WIDTH))
+    empty = (torch.zeros(0, dtype=torch.int64, device=dev),) * 2
+    sr = LB.LabelSemiring(LB.concat_lists, LB.concat_lists, empty, empty)
+    c, secs, peak = _timed(lambda: TR.compose_labelled(g, g, sr))
+    co_h, su_h = sub.offsets.cpu().numpy(), sub.succ.cpu().numpy()
+    cnt_h, ent_h = counts.cpu().numpy(), entries.cpu().numpy()
+    loff = np.concatenate([[0], np.cumsum(cnt_h)])
+    cco, csu = c.graph.offsets.cpu().numpy(), c.graph.succ.cpu().numpy()
+    ccnt, cent = c.values[0].cpu().numpy(), c.values[1].cpu().numpy()
+    cloff = np.concatenate([[0], np.cumsum(ccnt)])
+    # the paths into each output arc (the runs the merge folds), by a
+    # sparse product on the host
+    import scipy.sparse as sp
+    adj = sp.csr_matrix((np.ones(len(su_h), dtype=np.int64), su_h, co_h),
+                        shape=(K, K))
+    paths = (adj @ adj).tocsr()
+    if paths.nnz != c.num_arcs or int(paths.data.sum()) != int(
+            np.diff(co_h)[su_h].sum()):
+        raise AssertionError(f"list compose_labelled: {c.num_arcs} arcs "
+                             f"out, the path product has {paths.nnz}")
+    rng = np.random.default_rng(33)
+    for x in rng.choice(K, COMPOSE_SAMPLE, replace=False):
+        acc = {}
+        for i in range(co_h[x], co_h[x + 1]):
+            y = su_h[i]
+            for j in range(co_h[y], co_h[y + 1]):
+                z = int(su_h[j])
+                acc[z] = (acc.get(z, []) + ent_h[loff[i]:loff[i + 1]].tolist()
+                          + ent_h[loff[j]:loff[j + 1]].tolist())
+        zs = sorted(acc)
+        a, b = cco[x], cco[x + 1]
+        if (csu[a:b].tolist() != zs
+                or [cent[cloff[k]:cloff[k + 1]].tolist()
+                    for k in range(a, b)] != [acc[z] for z in zs]):
+            raise AssertionError(f"list compose_labelled: node {x} differs "
+                                 f"from the host fold")
+    return dict(nodes=K, arcs=sub.num_arcs, entries=entries.numel(),
+                arcs_out=c.num_arcs, entries_out=c.values[1].numel(),
+                seconds=secs, peak_above_resident=peak,
+                paths=int(paths.data.sum()),
+                longest_run=int(paths.data.max(initial=0)),
+                sampled_nodes=COMPOSE_SAMPLE)
 
 
 # ---- the cli phase: the command line and the sliced decode -------------
@@ -1976,6 +2491,182 @@ def phase_analytics(dev, graph, hco, hsu) -> dict:
         launches=launches, steps=r)
 
 
+# ---- the big phase: the sliced decode past 2^31 arcs -------------------
+
+# n = 2^27 nodes, each with 12 local successors (x+1 ... x+12 mod n: copy
+# blocks and intervals) and 5 from a seeded hash of (x, j) mod n
+# (residuals): about 2.28G arcs (past 2^31) under 2^31 nodes, a stream past
+# 2^32 bits.  Made on the card and encoded on the host in node ranges of
+# 2^24 (one native encode on every host thread each), joined by
+# merge_shards; decoded in slices of 2^27 arcs.  The generator is the torch
+# copy of tests/torch_big_graph.WebLikeGraph.
+BIG_NODES = 1 << 27
+BIG_RANGE = 1 << 24
+BIG_SLICE_ARCS = 1 << 27
+BIG_SEED = 11
+BIG_LOCAL = 12
+BIG_RANDOM = 5
+# the limits the run must pass: arcs past 2^31 (nodes under it), a stream
+# past 2^32 bits
+BIG_ARCS_PAST = 1 << 31
+BIG_BITS_PAST = 1 << 32
+
+
+def web_like_slice(n: int, seed: int, lo: int, hi: int, device) -> tuple:
+    """(csr_off int64[hi - lo + 1], succ int64) of nodes [lo, hi) of the
+    big phase's graph, on ``device``: each list the local and the hashed
+    successors, sorted and deduplicated."""
+    x = torch.arange(lo, hi, dtype=torch.int64, device=device)[:, None]
+    local = (x + torch.arange(1, BIG_LOCAL + 1, device=device)) % n
+    rnd = mix64(x * K_X + torch.arange(BIG_RANDOM, device=device) * K_J
+                + seed) % n
+    row = torch.sort(torch.cat([local, rnd], 1), 1).values
+    del x, local, rnd
+    keep = torch.ones_like(row, dtype=torch.bool)
+    keep[:, 1:] = row[:, 1:] != row[:, :-1]
+    co = torch.zeros(hi - lo + 1, dtype=torch.int64, device=device)
+    torch.cumsum(keep.sum(1), 0, out=co[1:])
+    return co, row[keep]
+
+
+def _big_equal(co, succ, lo: int, hi: int, dev) -> bool:
+    eco, esu = web_like_slice(BIG_NODES, BIG_SEED, lo, hi, dev)
+    return torch.equal(co, eco) and torch.equal(succ, esu.to(torch.int32))
+
+
+def phase_big(dev, card: str) -> dict:
+    """The sliced decode past 2^31 arcs: the big graph generated and
+    encoded range by range into a basename in ``.big_smoke_*/`` under the
+    checkout (removed at the end), then ``decode_big_slices`` on the card
+    -- launch counts reset before each slice, B1 and B2 launched in every
+    slice, each slice ``torch.equal`` to the generator, on the kernel
+    route with no arc decoded on the host -- and ``load_csr`` of the whole
+    basename, which must give the same CSR or raise before any launch."""
+    from webgraph_tpu_torch.ops.bigdecode import decode_big_slices
+    from webgraph_tpu_torch.parallel.multihost import (encode_shard,
+                                                       merge_shards)
+    s = BVGraphSettings()
+    n = BIG_NODES
+    threads = os.cpu_count() or 1
+    out = dict(card=card, nodes=n, range_nodes=BIG_RANGE,
+               slice_arcs=BIG_SLICE_ARCS, encode_threads=threads)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix=".big_smoke_", dir=ROOT)
+    try:
+        base = os.path.join(tmp, "big")
+        gen_s = enc_s = 0.0
+        m = 0
+        starts = list(range(0, n, BIG_RANGE))
+        for k, lo in enumerate(starts):
+            hi = min(lo + BIG_RANGE, n)
+            t0 = time.perf_counter()
+            co, su = web_like_slice(n, BIG_SEED, lo, hi, dev)
+            co_h, su_h = co.cpu().numpy(), su.cpu().numpy()
+            del co, su
+            gen_s += time.perf_counter() - t0
+            m += int(co_h[-1])
+            t0 = time.perf_counter()
+            encode_shard(co_h, su_h, s, base, k, lo, hi, threads=threads,
+                         node_base=lo)
+            enc_s += time.perf_counter() - t0
+            del co_h, su_h
+        t0 = time.perf_counter()
+        merge_shards(base, len(starts), s)
+        merge_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        bvg = BVGraph.load(base)
+        offsets = bvg.offsets_array()
+        outd = native.decode_outdegrees(bvg.data, offsets,
+                                        s.outdegree_coding)
+        prep_s = time.perf_counter() - t0
+        bits = int(offsets[-1])
+        if not (n < BIG_ARCS_PAST < m and bits > BIG_BITS_PAST
+                and bvg.num_arcs == m and int(outd.sum()) == m):
+            raise AssertionError(f"big: {n} nodes, {m} arcs, {bits} bits")
+        out.update(arcs=m, bits=bits, bits_per_link=bits / m,
+                   graph_bytes=os.path.getsize(base + ".graph"),
+                   generate_s=gen_s, encode_s=enc_s, merge_s=merge_s,
+                   prep_s=prep_s)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        rep, per_slice = [], []
+        it = decode_big_slices(offsets, outd, s, bvg.data,
+                               slice_arcs=BIG_SLICE_ARCS, report=rep)
+        x, check_s = 0, 0.0
+        t0 = time.perf_counter()
+        while True:
+            _build.reset_launches()
+            try:
+                lo, hi, co, succ = next(it)
+            except StopIteration:
+                break
+            la = {k: _build.LAUNCHES[k] for k in KERNELS}
+            _decoded(la, f"big slice [{lo}, {hi})")
+            t1 = time.perf_counter()
+            if lo != x or not _big_equal(co, succ, lo, hi, dev):
+                raise AssertionError(f"big slice [{lo}, {hi}) differs from "
+                                     f"the generator")
+            torch.cuda.synchronize()
+            check_s += time.perf_counter() - t1
+            per_slice.append(la)
+            x = hi
+            del co, succ
+        sliced_s = time.perf_counter() - t0
+        bad = [r for r in rep if r["route"] != "kernel" or r["fallback_arcs"]]
+        if x != n or bad:
+            raise AssertionError(f"big: slices reach node {x}; off the "
+                                 f"kernel route or filled on the host: "
+                                 f"{bad[:3]}")
+        out["sliced"] = dict(
+            slices=len(rep), seconds=sliced_s, check_s=check_s,
+            halo_decode_s=[r["halo_decode_s"] for r in rep],
+            plan_s=[r["plan_s"] for r in rep],
+            decode_s=[r["decode_s"] for r in rep],
+            arcs=[r["arcs"] for r in rep], launches_per_slice=per_slice,
+            peak_above_resident=torch.cuda.max_memory_allocated()
+            - resident, fallback_arcs=0, equal_to_generator=True)
+        del it, rep, outd, offsets, bvg
+        torch.cuda.empty_cache()
+
+        # the whole basename through one cold plan
+        _build.reset_launches()
+        try:
+            csr, load_s, load_peak = _timed(lambda: load_csr(base))
+        except Exception as e:  # recorded; a launch before it is a fault
+            la = {k: _build.LAUNCHES[k] for k in KERNELS}
+            if any(la.values()):
+                raise AssertionError(f"big: load_csr raised after "
+                                     f"launching {la}: {e!r}")
+            out["load_csr"] = dict(raised=f"{type(e).__name__}: {e}",
+                                   launches=la)
+        else:
+            la = {k: _build.LAUNCHES[k] for k in KERNELS}
+            t0 = time.perf_counter()
+            ok = csr.num_nodes == n and csr.num_arcs == m
+            for lo in starts:
+                hi = min(lo + BIG_RANGE, n)
+                a, b = int(csr.offsets[lo]), int(csr.offsets[hi])
+                ok = ok and _big_equal(csr.offsets[lo:hi + 1] - a,
+                                       csr.succ[a:b], lo, hi, dev)
+            if not ok:
+                raise AssertionError("big: load_csr gave a CSR that "
+                                     "differs from the generator")
+            out["load_csr"] = dict(seconds=load_s,
+                                   peak_above_resident=load_peak,
+                                   launches=la, report=csr.report,
+                                   check_s=time.perf_counter() - t0,
+                                   equal_to_generator=True)
+            del csr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def profile_window(fn) -> dict:
     """``fn()`` once under ``torch.profiler``: wall time, the device's busy
     time (kernels and copies) and its share, and the device time of the
@@ -2015,12 +2706,19 @@ def main() -> int:
     t_start = time.perf_counter()
     dev, card = phase_device()
     ptxas = phase_build()
+    # the slice's synthetic is made and encoded on the host (into its
+    # cache) in a thread beside the kernels phase, whose rows say so
+    slice_input = _beside(lambda: synth_input(SLICE_NODES))
     errors = Errors()
     phase_kernels(dev, errors)
+    made, _ = slice_input()
+    input_src, input_made_s = made[5], made[6]
+    del made
     t0 = time.perf_counter()
     probes = phase_probes(dev, errors)
     probes_s = time.perf_counter() - t0
     ctx, res = phase_slice(dev, errors, SLICE_NODES)
+    res.update(input_made=input_src, input_made_s=input_made_s)
     emit("slice", res)
     torch.cuda.empty_cache()
     files = phase_files(dev, card, **ctx)
@@ -2036,6 +2734,8 @@ def main() -> int:
     emit("parallel", phase_parallel(dev, card, **ctx))
     emit("analytics", phase_analytics(dev, **ctx))
     del ctx
+    torch.cuda.empty_cache()
+    emit("big", phase_big(dev, card))
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),
              "compact_runs": (res["compact_ms"], res["compact_plain_ms"])}
     kernels = [dict(name=k, route="cuda", source=v["source"],
@@ -2056,7 +2756,8 @@ def main() -> int:
                 for k, (src, rep) in PROBE_SITES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", dict(seconds=time.perf_counter() - t_start,
-                       probes_s=probes_s, ptxas=ptxas))
+                       probes_s=probes_s, ptxas=ptxas,
+                       line_wall_s=dict(_WALL["lines"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

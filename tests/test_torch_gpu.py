@@ -724,3 +724,128 @@ def test_plan_shard_decode_on_card(cuda, tmp_path):
     assert filled == 0 and min(_b1_b2()) >= 1
     np.testing.assert_array_equal(pco, co[lo:hi + 1] - co[lo])
     np.testing.assert_array_equal(succ.cpu().numpy(), su[co[lo]:co[hi]])
+
+
+def test_list_decode_on_card_matches_cpu(cuda, tmp_path):
+    """List labels read back to the card (the threaded native decode into
+    pinned buffers, one upload) equal the CPU's read and the labels
+    stored; B1 and B2 decode the graph."""
+    from webgraph_tpu_torch import labelling as L
+    from webgraph_tpu_torch.codecs.bvgraph import BVGraph
+    cpu_g, card_g = _labelled_pair(cuda, "long63")
+    b = str(tmp_path / "g")
+    BVGraph.store_labelled(card_g, b, backend="cuda")
+    lg = L.BitStreamArcLabelledGraph.load(b + "-labelled")
+    before = dict(_build.LAUNCHES)
+    on = lg.to_device()
+    torch.cuda.synchronize()
+    for k in ("bv_decode_lanes", "compact_runs"):
+        assert _build.LAUNCHES[k] > before[k]
+    assert on.device == card_g.device and on.equals_labelled(card_g)
+    assert set(on.report["labels_split"]) == {"native_s", "upload_s"}
+    assert lg.to_device("cpu").equals_labelled(cpu_g)
+
+
+def _list_merge_cases(g, tmp):
+    """The list merges of one labelled graph on its device: union with a
+    relabelled copy, the offline symmetrize both ways, compose, and the
+    filter with a list predicate."""
+    from webgraph_tpu_torch import labelling
+    from webgraph_tpu_torch import transform
+    from webgraph_tpu_torch.labelling.graph import filter_labelled
+
+    def below(v, x, t):
+        arc = torch.repeat_interleave(
+            torch.arange(v[0].numel(), device=v[0].device), v[0],
+            output_size=v[1].numel())
+        hit = torch.zeros(v[0].numel(), dtype=torch.bool, device=v[0].device)
+        hit[arc[v[1] < (1 << 61)]] = True
+        return hit
+
+    cat = labelling.concat_lists
+    r = labelling.relabel(g, lambda v, a, b: (v[0], v[1] >> 1), g.prototype)
+    out = {"union": labelling.union_labelled(g, r, cat)}
+    bs = transform.symmetrize_offline_labelled(g, merge=cat, batch_size=7001,
+                                               temp_dir=str(tmp))
+    out["symmetrize"] = bs.to_arc_labelled()
+    _, succ, labs = next(bs.iter_labelled(17))
+    out["iter_node_17"] = (succ.tolist(), [l.value.tolist() for l in labs])
+    bs.cleanup()
+    sub = filter_labelled(g, lambda v, x, t: (x < 300) & (t < 300))
+    empty = (torch.zeros(0, dtype=torch.int64, device=g.device),) * 2
+    out["compose"] = transform.compose_labelled(
+        sub, sub, labelling.LabelSemiring(cat, cat, empty, empty))
+    out["filter"] = filter_labelled(g, below)
+    return out
+
+
+def test_list_merges_on_card_match_cpu(cuda, tmp_path):
+    cpu_g, card_g = _labelled_pair(cuda, "long63")
+    (tmp_path / "c").mkdir()
+    (tmp_path / "g").mkdir()
+    want = _list_merge_cases(cpu_g, tmp_path / "c")
+    got = _list_merge_cases(card_g, tmp_path / "g")
+    torch.cuda.synchronize()
+    for k, w in want.items():
+        if k == "iter_node_17":
+            assert got[k] == w
+            continue
+        assert got[k].device == card_g.device
+        assert got[k].equals_labelled(w), k
+
+
+def test_sliced_decode_past_a_range_store_on_card(cuda, tmp_path):
+    """The big phase at a small size: the generator's torch copy on the
+    card equals the numpy one, the graph stored by node ranges decodes
+    slice by slice through B1 and B2 equal to it."""
+    import chip_smoke
+    from webgraph_tpu_torch.codecs.bvgraph import BVGraph
+    from webgraph_tpu_torch.ops import vencode
+    from webgraph_tpu_torch.ops.bigdecode import decode_big_slices
+    from webgraph_tpu_torch.parallel.multihost import (encode_shard,
+                                                       merge_shards)
+    from .torch_big_graph import WebLikeGraph
+    n, s = 200_000, BVGraphSettings()
+    g = WebLikeGraph(n, seed=chip_smoke.BIG_SEED)
+    base = str(tmp_path / "big")
+    bounds = [0, 70_000, 150_000, n]
+    for k in range(3):
+        lo, hi = bounds[k], bounds[k + 1]
+        co, su = chip_smoke.web_like_slice(n, chip_smoke.BIG_SEED, lo, hi,
+                                           cuda)
+        eco, esu = g.slice(lo, hi)
+        assert np.array_equal(co.cpu().numpy(), eco)
+        assert np.array_equal(su.cpu().numpy(), esu)
+        encode_shard(eco, esu, s, base, k, lo, hi, threads=4, node_base=lo)
+    # the offsets' gaps packed on the card: the bytes of a pack on the host
+    merge_shards(base, 3, s)
+    with open(base + ".offsets", "rb") as f:
+        on_card = f.read()
+    starts = native.decode_offset_stream(np.frombuffer(on_card, np.uint8),
+                                         n, s.offset_coding)
+    on_host, _ = vencode.pack_gaps(torch.from_numpy(np.diff(starts,
+                                                            prepend=0)),
+                                   s.offset_coding, s.zeta_k, device="cpu")
+    assert on_host == on_card
+    bv = BVGraph.load(base)
+    offsets = bv.offsets_array()
+    outd = native.decode_outdegrees(bv.data, offsets, s.outdegree_coding)
+    rep, x = [], 0
+    it = decode_big_slices(offsets, outd, s, bv.data, slice_arcs=1 << 20,
+                           report=rep)
+    while True:
+        before = dict(_build.LAUNCHES)
+        try:
+            lo, hi, co, succ = next(it)
+        except StopIteration:
+            break
+        for k in ("bv_decode_lanes", "compact_runs"):
+            assert _build.LAUNCHES[k] > before[k]
+        eco, esu = g.slice(lo, hi)
+        assert lo == x and co.device == cuda
+        assert np.array_equal(co.cpu().numpy(), eco)
+        assert np.array_equal(succ.cpu().numpy(), esu)
+        x = hi
+    assert x == n and len(rep) >= 3
+    assert all(r["route"] == "kernel" and r["fallback_arcs"] == 0
+               for r in rep)

@@ -124,6 +124,96 @@ def test_host_layer_module_mirrors_the_jax_one(mod):
         assert hasattr(port, name), name
 
 
+# every module of the JAX package, by its dotted path below the package,
+# found on disk; those the port leaves out, with the reason (ROADMAP A12)
+JAX_PKG = ROOT / "webgraph_tpu"
+NOT_PORTED = {
+    "__main__": "runs the CLI when imported; test_dunder_main_exists",
+    "native": "the port builds its own host library (webgraph_tpu_torch/"
+              "native, held to the original by test_torch_native.py)",
+    "ops.vdecode": "struck: an XLA decoder that B1 supersedes",
+    "ops.vdecode2": "struck: an XLA decoder that B1 supersedes",
+    "ops.vparse2": "struck: an XLA decoder that B1 supersedes",
+    "ops.packed": "moved: ops.bitstream.pack_words_u32 and "
+                  "native.decode_offset_stream",
+}
+
+
+def _jax_modules():
+    out = []
+    for f in sorted(JAX_PKG.rglob("*.py")):
+        parts = list(f.relative_to(JAX_PKG).with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        out.append(".".join(parts))
+    return out
+
+
+ALL_MODULES = [m for m in _jax_modules() if m not in NOT_PORTED]
+
+
+def test_every_jax_module_is_ported_or_struck():
+    mods = _jax_modules()
+    assert len(mods) > 40
+    assert set(NOT_PORTED) <= set(mods)
+    assert len(ALL_MODULES) == len(mods) - len(NOT_PORTED)
+
+
+@pytest.mark.parametrize("mod", ALL_MODULES)
+def test_every_ported_module_has_the_jax_names(mod):
+    """The port's module at the JAX module's path exists and holds every
+    name of the JAX ``__all__`` (a subset: the port adds names such as
+    ``load_csr`` and ``device_round``)."""
+    import importlib
+    port = importlib.import_module("webgraph_tpu_torch" + (
+        "." + mod if mod else ""))
+    ref = importlib.import_module("webgraph_tpu" + ("." + mod if mod else ""))
+    missing = [n for n in getattr(ref, "__all__", []) if not hasattr(port, n)]
+    assert not missing, missing
+
+
+def test_compression_flags_importable_from_the_bvgraph_path():
+    from webgraph_tpu_torch import settings
+    from webgraph_tpu_torch.codecs.bvgraph import CompressionFlags
+    assert CompressionFlags is settings.CompressionFlags
+    from webgraph_tpu.codecs.bvgraph import CompressionFlags as J
+    for name in ("GAMMA", "DELTA", "ZETA", "NIBBLE", "UNARY"):
+        assert getattr(CompressionFlags, name) == getattr(J, name)
+
+
+# the JAX kdecode driver's public names (the module has no __all__): where
+# each lives in the port, or None where ROADMAP A12 struck it
+KDECODE_NAMES = {
+    "PreparedDecode": "ops.kdecode.LanePlan",
+    "plan_kernel_decode": "ops.kplan.plan_kernel_decode",
+    "resolve_halos": "ops.resolve.resolve_halos",
+    "decode_full": "ops.resolve.resolve_halos",     # then decode_to_csr
+    "chunked_to_csr": "ops.csr.decode_to_csr",
+    "decode_to_csr": "ops.csr.decode_to_csr",
+    "fill_lanes": "ops.csr.fill_lanes",
+    "hub_fallback_nodes": "ops.kdecode.check_diag",  # then fill_lanes
+    "plan_csr_index": "ops.csr.plan_csr_index",
+    "fill_csr_device": "ops.csr.fill_csr_device",
+    "HubPlan": None,         # lanes are sized exactly: no hub split
+    "assemble_hubs": None,
+    "finalize_hub": None,
+}
+
+
+@pytest.mark.parametrize("name", sorted(KDECODE_NAMES))
+def test_kdecode_driver_names_are_placed(name):
+    import importlib
+    assert hasattr(importlib.import_module("webgraph_tpu.ops.kdecode"), name)
+    where = KDECODE_NAMES[name]
+    if where is None:
+        assert not hasattr(importlib.import_module(
+            "webgraph_tpu_torch.ops.kdecode"), name)
+        return
+    mod, attr = where.rsplit(".", 1)
+    assert hasattr(importlib.import_module("webgraph_tpu_torch." + mod),
+                   attr), where
+
+
 def test_dunder_main_exists():
     assert (PKG / "__main__.py").exists()
     assert "from .cli import main" in (PKG / "__main__.py").read_text()

@@ -276,6 +276,41 @@ def test_batchgraph_mid_stream_split(tmp_path):
     bt.cleanup()
 
 
+@pytest.mark.parametrize("merge_arcs", [16, 1 << 22])
+def test_batchgraph_blocks_equal_jax(tmp_path, monkeypatch, merge_arcs):
+    """The merge by blocks of nodes (blocks of a few arcs, so a hub of
+    more arcs than a block is a block alone; or one block) reads the same
+    lists from every start as the JAX BatchGraph over the same batch
+    files; ``host_csr`` and the native streaming store read whole
+    blocks and give the same CSR and the single-stream encode's bytes."""
+    from webgraph_tpu.transform.offline import BatchGraph as JBatchGraph
+    from webgraph_tpu_torch.codecs.bvgraph import BVGraph
+    from webgraph_tpu_torch.core.graph import host_csr
+    monkeypatch.setattr(OFF, "_MERGE_ARCS", merge_arcs)
+    rng = np.random.default_rng(9)
+    src = rng.integers(0, 400, 6000)
+    tgt = rng.integers(0, 400, 6000)
+    src[:500] = 123
+    g = CSRGraph.from_arcs(src, tgt, 420, device=CPU)
+    bt = T.symmetrize_offline(g, batch_size=1500, temp_dir=str(tmp_path))
+    assert len(bt.batches) > 3
+    jb = JBatchGraph(bt.num_nodes, bt.num_arcs, bt.batches)
+    want = {x: succ.tolist() for x, succ in jb.iter_nodes()}
+    for start in (0, 1, 123, 124, 419, 420):
+        assert ({x: succ.tolist() for x, succ in bt.iter_nodes(start)}
+                == {x: v for x, v in want.items() if x >= start})
+    co, su = host_csr(bt)
+    mem = T.symmetrize(g)
+    np.testing.assert_array_equal(co, mem.offsets.numpy())
+    np.testing.assert_array_equal(su, mem.succ.numpy())
+    BVGraph.store(bt, str(tmp_path / "blocks"))
+    BVGraph.store(mem, str(tmp_path / "csr"), num_threads=1)
+    for ext in (".graph", ".offsets"):
+        assert ((tmp_path / ("blocks" + ext)).read_bytes()
+                == (tmp_path / ("csr" + ext)).read_bytes())
+    bt.cleanup()
+
+
 def test_simplify_loops():
     g = CSRGraph.from_lists([[0, 1], [2], []], device=CPU)
     s = T.simplify(g)

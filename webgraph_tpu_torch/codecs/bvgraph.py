@@ -50,11 +50,11 @@ from ..ops.csr import decode_to_csr
 from ..ops.ef_index import EliasFanoMonotoneList, build_ef
 from ..ops.kplan import plan_kernel_decode
 from ..ops.resolve import resolve_halos
-from ..settings import BVGraphSettings
+from ..settings import BVGraphSettings, CompressionFlags
 from ..settings import CompressionFlags as _C
 from ..utils import properties as javaprops
 
-__all__ = ["BVGraph", "BVGraphSettings"]
+__all__ = ["BVGraph", "BVGraphSettings", "CompressionFlags"]
 
 GRAPH_EXTENSION = ".graph"
 OFFSETS_EXTENSION = ".offsets"
@@ -567,7 +567,8 @@ class BVGraph(ImmutableGraph):
     def _store_native(cls, graph, basename: str, s: BVGraphSettings,
                       comment: str, num_threads: int) -> Dict[str, str]:
         """Native encode: threaded from a ``CSRGraph``'s arrays, streamed in
-        slices from any other graph (bounded memory, byte-identical to the
+        slices from any other graph -- its blocks of nodes where it has
+        ``iter_blocks`` -- (bounded memory, byte-identical to the
         single-stream encode)."""
         if isinstance(graph, CSRGraph):
             csr_off, succ = host_csr(graph)
@@ -580,6 +581,11 @@ class BVGraph(ImmutableGraph):
             del csr_off, succ
             return _finish_native(basename, s, comment, n, out)
         enc = _native.StreamEncoder(s)
+        if hasattr(graph, "iter_blocks"):
+            for _x, _hi, at, tgt in graph.iter_blocks():
+                enc.push(at, tgt)
+            return _finish_native(basename, s, comment, enc.nodes,
+                                  enc.finish())
         offs = [0]
         bufs = []
         for _x, su in graph.iter_nodes():

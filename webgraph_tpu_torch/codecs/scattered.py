@@ -47,7 +47,8 @@ class IdRemap:
     ScatteredArcsASCIIGraph.java:155-240), vectorized per block.
 
     Keeps the known ids as a sorted array plus their dense ranks; each block
-    is resolved with one searchsorted, new ids get the next dense ids in
+    is reduced to its distinct ids (one sort), which are resolved with one
+    searchsorted of sorted keys, new ids get the next dense ids in
     first-appearance order, and the sorted table grows by a vectorized
     merge.  O(U + B log B) per block of B pairs against U known ids."""
 
@@ -59,28 +60,29 @@ class IdRemap:
 
     def remap(self, vals: np.ndarray) -> np.ndarray:
         vals = np.asarray(vals, dtype=np.int64)
-        dense = np.empty(len(vals), dtype=np.int64)
+        uniq, first_idx, inv = np.unique(vals, return_index=True,
+                                         return_inverse=True)
+        rank = np.empty(len(uniq), dtype=np.int64)
         if len(self._sorted):
-            pos = np.searchsorted(self._sorted, vals)
+            pos = np.searchsorted(self._sorted, uniq)
             posc = np.minimum(pos, len(self._sorted) - 1)
-            known = (pos < len(self._sorted)) & (self._sorted[posc] == vals)
-            dense[known] = self._rank[pos[known]]
+            known = (pos < len(self._sorted)) & (self._sorted[posc] == uniq)
+            rank[known] = self._rank[pos[known]]
         else:
-            known = np.zeros(len(vals), dtype=bool)
-        new_vals = vals[~known]
-        if len(new_vals):
-            uniq, first_idx, inv = np.unique(
-                new_vals, return_index=True, return_inverse=True)
-            order = np.argsort(first_idx, kind="stable")
+            known = np.zeros(len(uniq), dtype=bool)
+        new = ~known
+        if new.any():
+            new_vals = uniq[new]
+            order = np.argsort(first_idx[new], kind="stable")
             r = np.empty(len(order), dtype=np.int64)
             r[order] = np.arange(len(order))
-            dense[~known] = self.count + r[inv]
-            self._chunks.append(uniq[order])
-            ins = np.searchsorted(self._sorted, uniq)
-            self._sorted = np.insert(self._sorted, ins, uniq)
+            rank[new] = self.count + r
+            self._chunks.append(new_vals[order])
+            ins = np.searchsorted(self._sorted, new_vals)
+            self._sorted = np.insert(self._sorted, ins, new_vals)
             self._rank = np.insert(self._rank, ins, self.count + r)
-            self.count += len(uniq)
-        return dense
+            self.count += len(new_vals)
+        return rank[inv.reshape(-1)]
 
     def ids(self) -> np.ndarray:
         """Original identifiers in appearance order (``.ids`` semantics)."""

@@ -314,11 +314,20 @@ class ImmutableGraph:
 
 def host_csr(graph) -> Tuple[np.ndarray, np.ndarray]:
     """(offsets int64[n+1], successors int64[m]) numpy arrays of a
-    ``CSRGraph`` on any device (brought to the host once) or of any graph
-    with ``iter_nodes``."""
+    ``CSRGraph`` on any device (brought to the host once), of a graph with
+    ``iter_blocks`` (blocks of nodes as CSR pieces), or of any graph with
+    ``iter_nodes``."""
     if isinstance(graph, CSRGraph):
         return (graph.offsets.cpu().numpy(),
                 graph.succ.cpu().to(torch.int64).numpy())
+    if hasattr(graph, "iter_blocks"):
+        offs, lists, base = [np.zeros(1, dtype=np.int64)], [], 0
+        for _x, _hi, at, tgt in graph.iter_blocks():
+            offs.append(at[1:] + base)
+            lists.append(tgt)
+            base += len(tgt)
+        return (np.concatenate(offs),
+                np.concatenate(lists) if lists else np.zeros(0, np.int64))
     offs = [0]
     lists = []
     for _x, succ in graph.iter_nodes():

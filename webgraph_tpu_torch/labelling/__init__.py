@@ -15,7 +15,9 @@ separate bit stream next to any underlying graph.
   takes it to the card.
 - union / relabelling / semiring composition / label filters
   (UnionArcLabelledImmutableGraph, ArcRelabelledImmutableGraph,
-  LabelSemiring, IntegerLabelFilter) as tensor functions.
+  LabelSemiring, IntegerLabelFilter) as tensor functions, their merges
+  over batches of scalar or list labels (``concat_lists``, the
+  concatenation of list labels).
 """
 
 from .labels import (
@@ -30,6 +32,7 @@ from .graph import (
     ArcLabelledGraph,
     BitStreamArcLabelledGraph,
     LabelSemiring,
+    concat_lists,
     integer_label_filter,
     relabel,
     union_labelled,
@@ -40,6 +43,6 @@ __all__ = [
     "Label", "FixedWidthIntLabel", "FixedWidthIntListLabel",
     "FixedWidthLongListLabel", "GammaCodedIntLabel", "label_from_spec",
     "ArcLabelledGraph", "BitStreamArcLabelledGraph", "union_labelled",
-    "relabel", "LabelSemiring", "integer_label_filter",
+    "relabel", "LabelSemiring", "integer_label_filter", "concat_lists",
     "integer_triples_graph", "store_integer_triples",
 ]

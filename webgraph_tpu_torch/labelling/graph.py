@@ -14,8 +14,13 @@ The JAX package keeps one ``Label`` object per arc.  Here the labels of an
 the prototype and the host surface (``labels_of``, ``iter_labelled``).  The
 combinators are tensor functions on the graph's device: a merge, a
 conversion or a predicate receives the labels of many arcs at once, with
-their sources and targets as int64 tensors.  The ``.labels`` and
-``.labeloffsets`` streams are packed and unpacked by ``ops/labelcodec.py``;
+their sources and targets as int64 tensors.  A merge (``union_labelled``,
+the offline transforms, a ``LabelSemiring``'s ``add``) takes two batches
+of equal length k and returns k labels, row i the merge of pair i: int64
+tensors for scalar labels, ragged pairs ``(counts[k], entries)`` for list
+labels; its first operand is always the earlier occurrence
+(``fold_runs``).  The ``.labels`` and ``.labeloffsets`` streams are packed
+and unpacked by ``ops/labelcodec.py``;
 ``BitStreamArcLabelledGraph.to_device`` takes a labelled basename to the
 card: the underlying graph's own device entry (B1 and B2 for a BVGraph)
 and the labels decoded onto the same device.
@@ -41,7 +46,7 @@ from .labels import Label, label_from_spec
 
 __all__ = ["ArcLabelledGraph", "BitStreamArcLabelledGraph",
            "union_labelled", "relabel", "LabelSemiring",
-           "integer_label_filter", "filter_labelled"]
+           "integer_label_filter", "filter_labelled", "concat_lists"]
 
 LABELS_EXTENSION = ".labels"
 LABEL_OFFSETS_EXTENSION = ".labeloffsets"
@@ -115,6 +120,40 @@ def gather_labels(values, idx: torch.Tensor):
     return values[idx]
 
 
+def concat_lists(a, b):
+    """The concatenation merge of list labels: row i is row i of ``a``
+    followed by row i of ``b`` (both ``(counts[k], entries)``)."""
+    k = a[0].numel()
+    pair = torch.arange(k, device=a[0].device)
+    rows = gather_labels(cat_labels([a, b]),
+                         torch.stack([pair, pair + k], 1).flatten())
+    return a[0] + b[0], rows[1]
+
+
+def _merged(out, like, k: int, what: str):
+    """A merge's result as the tensor form of ``like``, checked to hold k
+    labels: int64 [k], or ``(counts[k], entries[sum(counts)])``."""
+    if isinstance(like, tuple):
+        if not (isinstance(out, tuple) and len(out) == 2):
+            raise ValueError(f"{what} of list labels must return (counts, "
+                             f"entries)")
+        c, e = (torch.as_tensor(t).to(like[0].device, _I64) for t in out)
+        if c.numel() != k or e.numel() != int(c.sum()):
+            raise ValueError(f"{what} returned {c.numel()} lists holding "
+                             f"{e.numel()} entries for {k} pairs")
+        return c, e
+    out = torch.as_tensor(out).to(like.device, _I64)
+    if out.numel() != k:
+        raise ValueError(f"{what} returned {out.numel()} labels for {k} "
+                         f"pairs")
+    return out
+
+
+def num_labels(values) -> int:
+    """Labels in either tensor form."""
+    return values[0].numel() if isinstance(values, tuple) else values.numel()
+
+
 class ArcLabelledGraph(ImmutableGraph):
     """A ``CSRGraph`` and its labels as tensors on its device.
 
@@ -136,7 +175,7 @@ class ArcLabelledGraph(ImmutableGraph):
             values = tuple(torch.as_tensor(v).to(dev, _I64) for v in values)
         else:
             values = torch.as_tensor(values).to(dev, _I64)
-        m = values[0].numel() if isinstance(values, tuple) else values.numel()
+        m = num_labels(values)
         if m != graph.num_arcs:
             raise ValueError(f"{m} labels for {graph.num_arcs} arcs")
         self.graph = graph
@@ -379,13 +418,6 @@ def _write_label_files(basename: str, data: bytes, offs: bytes,
 # ---------------------------------------------------------------------------
 
 
-def _scalar(g: ArcLabelledGraph, what: str) -> torch.Tensor:
-    if isinstance(g.values, tuple):
-        raise TypeError(f"{what} merges scalar labels; list labels are "
-                        f"not merged on the device")
-    return g.values
-
-
 def stable_key_order(src: torch.Tensor, tgt: torch.Tensor):
     """(sorted keys ``(src << 32) | tgt``, the stable permutation that
     sorts them): equal keys keep their order, so gathering labels with the
@@ -395,23 +427,59 @@ def stable_key_order(src: torch.Tensor, tgt: torch.Tensor):
     return s.values, s.indices
 
 
-def fold_runs(key: torch.Tensor, vals: torch.Tensor, merge):
-    """Runs of equal sorted keys folded to one value each, in order: the
+def _split_rows(values, k: int):
+    """(rows [0, k), rows [k, end)) of labels in either tensor form."""
+    if not isinstance(values, tuple):
+        return values[:k], values[k:]
+    counts, entries = values
+    e = int(counts[:k].sum())
+    return (counts[:k], entries[:e]), (counts[k:], entries[e:])
+
+
+def fold_runs(key: torch.Tensor, vals, merge):
+    """Runs of equal sorted keys folded to one label each, in order: the
     first occurrence, then ``merge(acc, next)`` over the later ones, one
-    round per rank (elementwise over every run that long); ``merge=None``
-    keeps the first.  Returns (the runs' keys, their values)."""
+    round per rank (a batch call over every run that long); ``merge=None``
+    keeps the first.  ``vals``: int64 [m], or ``(counts[m], entries)``;
+    ``merge(a, b)`` returns the same form as its operands, one label per
+    pair -- the ragged merge contract of this module.  Returns (the runs'
+    keys, their labels).
+
+    The runs are visited longest first, so the runs still live at rank r
+    are a prefix of that order: scalar labels are merged in place; list
+    labels on an accumulator of the live runs alone, each round's finished
+    rows split off once and put back in run order at the end.  The work is
+    O(m) over all rounds, however long the longest run."""
     m = key.numel()
     start = torch.ones(m, dtype=torch.bool, device=key.device)
     start[1:] = key[1:] != key[:-1]
     first = torch.nonzero(start).flatten()
-    acc = vals[first]
-    if merge is not None and first.numel() < m:
-        size = torch.diff(first, append=first.new_full((1,), m))
-        for r in range(1, int(size.max())):
-            live = torch.nonzero(size > r).flatten()
-            acc[live] = torch.as_tensor(merge(acc[live],
-                                              vals[first[live] + r])).to(_I64)
-    return key[first], acc
+    if merge is None or first.numel() == m:
+        return key[first], gather_labels(vals, first)
+    size = torch.diff(first, append=first.new_full((1,), m))
+    order = torch.sort(size, descending=True, stable=True).indices
+    # at_least[s]: the runs of s occurrences or more
+    at_least = torch.bincount(size).flip(0).cumsum(0).flip(0).tolist()
+    longest = len(at_least) - 1
+    if not isinstance(vals, tuple):
+        acc = vals[first]
+        for r in range(1, longest):
+            live = order[:at_least[r + 1]]
+            acc[live] = _merged(merge(acc[live], vals[first[live] + r]),
+                                acc, live.numel(), "merge")
+        return key[first], acc
+    acc = gather_labels(vals, first[order])
+    done = []
+    for r in range(1, longest):
+        live = order[:at_least[r + 1]]
+        acc, ended = _split_rows(acc, live.numel())
+        done.append(ended)          # the runs of exactly r occurrences
+        acc = _merged(merge(acc, gather_labels(vals, first[live] + r)),
+                      acc, live.numel(), "merge")
+    done.append(acc)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(order.numel(), device=order.device)
+    return key[first], gather_labels(cat_labels(done[::-1]), back)
 
 
 def _from_keys(key: torch.Tensor, num_nodes: int) -> CSRGraph:
@@ -429,23 +497,28 @@ def _from_keys(key: torch.Tensor, num_nodes: int) -> CSRGraph:
 def union_labelled(g0: ArcLabelledGraph, g1: ArcLabelledGraph,
                    merge: Callable) -> ArcLabelledGraph:
     """Labelled arc union; ``merge(a, b)`` resolves the arcs present in
-    both, elementwise over int64 tensors, ``a`` g0's labels and ``b``
-    g1's (UnionArcLabelledImmutableGraph + LabelMergeStrategy.java:28).
-    An arc twice in one graph has no defined merge: it raises."""
+    both, a batch of ``a`` g0's labels and ``b`` g1's (scalar or ragged,
+    ``fold_runs``; UnionArcLabelledImmutableGraph +
+    LabelMergeStrategy.java:28).  An arc twice in one graph has no defined
+    merge: it raises."""
     if g0.device != g1.device:
         raise ValueError("both graphs must be on one device")
+    if isinstance(g0.values, tuple) != isinstance(g1.values, tuple):
+        raise ValueError("union_labelled: one graph's labels are lists, "
+                         "the other's scalars")
     n = max(g0.num_nodes, g1.num_nodes)
     src = torch.cat([g0.graph.arc_sources(), g1.graph.arc_sources()])
     tgt = torch.cat([g0.graph.succ, g1.graph.succ])
-    vals = torch.cat([_scalar(g0, "union_labelled"),
-                      _scalar(g1, "union_labelled")])
+    vals = cat_labels([g0.values, g1.values])
     key, order = stable_key_order(src, tgt)
     del src, tgt
     side = order >= g0.num_arcs
     same = key[1:] == key[:-1]
     if bool((same & (side[1:] == side[:-1])).any()):
         raise ValueError("union_labelled: an arc occurs twice in one graph")
-    ukey, v = fold_runs(key, vals[order], merge)
+    v = gather_labels(vals, order)
+    del vals, order, side, same
+    ukey, v = fold_runs(key, v, merge)
     return ArcLabelledGraph(_from_keys(ukey, n), v, g0.prototype)
 
 
@@ -460,13 +533,22 @@ def relabel(g: ArcLabelledGraph, convert: Callable,
 
 class LabelSemiring:
     """Semiring for labelled composition (LabelSemiring.java:39):
-    ``multiply(a, b)`` concatenates path labels elementwise; ``add`` merges
-    alternative paths, a ``scatter_reduce`` name ("sum", "amin", "amax",
-    "prod"); ``zero``/``one`` are the identities."""
+    ``multiply(a, b)`` concatenates path labels, a batch of pairs at once;
+    ``add`` merges alternative paths, either a ``scatter_reduce`` name
+    ("sum", "amin", "amax", "prod") for scalar labels, or a merge of
+    batches under the module's contract (``fold_runs``: int64 tensors or
+    ragged ``(counts, entries)`` pairs, the earlier path first), for list
+    labels too; ``zero``/``one`` are the identities.  A Python builtin
+    (``min``, ``max``, ``sum``) is not a batch merge and raises."""
 
-    def __init__(self, add: str, multiply, zero, one):
-        if add not in ("sum", "amin", "amax", "prod"):
-            raise ValueError(f"add must name a scatter_reduce, got {add!r}")
+    def __init__(self, add, multiply, zero, one):
+        if isinstance(add, str):
+            if add not in ("sum", "amin", "amax", "prod"):
+                raise ValueError(f"add must name a scatter_reduce, got "
+                                 f"{add!r}")
+        elif not callable(add) or add in (min, max, sum):
+            raise ValueError(f"add must name a scatter_reduce or merge "
+                             f"batches of labels, got {add!r}")
         self.add = add
         self.multiply = multiply
         self.zero = zero

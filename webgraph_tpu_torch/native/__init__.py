@@ -7,7 +7,8 @@ host library, with the same functions and results: the offsets index, the
 outdegree scan, the sequential decoder, the batched range decoder, the
 header-only reference scan, the parallel and streaming encoders, the
 device encoder's greedy reference selection, and the arc-pair text parser
-of scattered-arc ingestion.
+of scattered-arc ingestion; and, the port's own, the threaded decode of
+list-label streams.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 __all__ = ["decode_offset_stream", "decode_outdegrees",
            "bv_decode_all", "bv_decode_range", "bv_encode", "bv_scan_refs",
            "bv_fill_ranges", "select_refs", "StreamEncoder", "lib_path",
-           "parse_arcs", "parse_arcs_available"]
+           "parse_arcs", "parse_arcs_available", "decode_list_labels"]
 
 #: stats words returned by bv_encode: copied, intervalised, residual arcs;
 #: tot_ref, tot_dist; bits for outdegrees/references/blocks/intervals/
@@ -41,7 +42,8 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         for fn in ("wg_bv_decode_all", "wg_bv_decode_range", "wg_bv_encode",
                    "wg_bv_fill_ranges", "wg_bv_scan_refs", "wg_enc_push",
-                   "wg_enc_finish", "wg_select_refs", "wg_parse_arcs"):
+                   "wg_enc_finish", "wg_select_refs", "wg_parse_arcs",
+                   "wg_list_label_counts", "wg_list_label_entries"):
             getattr(lib, fn).restype = ctypes.c_int64
         lib.wg_enc_new.restype = ctypes.c_void_p
         lib.wg_enc_free.restype = None
@@ -392,3 +394,57 @@ def parse_arcs(buf: bytes, eof: bool = True) -> tuple:
         snippet = buf[off:off + 40].split(b"\n", 1)[0]
         raise ValueError(f"malformed arc line at byte {off}: {snippet!r}")
     return src[:rc].copy(), tgt[:rc].copy(), int(consumed.value)
+
+
+def decode_list_labels(data: np.ndarray, label_offsets: np.ndarray,
+                       csr_off: np.ndarray, width: int, threads: int = 0,
+                       alloc=None) -> tuple:
+    """The list labels of a ``.labels`` stream: (counts int64[m], entries
+    int64[sum(counts)]), arc j's entries the next ``counts[j]`` of
+    ``entries``.
+
+    ``label_offsets``: each node's first bit (n + 1 entries); ``csr_off``:
+    the graph's CSR offsets (n + 1).  The nodes are cut into ``threads``
+    ranges of equal arc shares (0: one per core); pass 1 reads every
+    length and checks that each node ends at the next one's offset, pass 2
+    writes the entries.  ``alloc(k)``: an int64 array of k elements to
+    write into (``np.empty`` when None), for the counts and the entries.
+    A node that ends elsewhere, or a code that runs past the stream,
+    raises ``ValueError`` naming the first such node."""
+    lib = _load()
+    alloc = alloc or (lambda k: np.empty(k, dtype=np.int64))
+    data = np.concatenate([np.ascontiguousarray(data, dtype=np.uint8),
+                           np.zeros(32, dtype=np.uint8)])
+    nbytes = len(data) - 32
+    lo = np.ascontiguousarray(label_offsets, dtype=np.int64)
+    co = np.ascontiguousarray(csr_off, dtype=np.int64)
+    n = len(co) - 1
+    m = int(co[-1])
+    k = max(1, min(threads or (os.cpu_count() or 1), n))
+    cuts = np.searchsorted(co, (m * np.arange(1, k, dtype=np.int64)) // k)
+    x0 = np.unique(np.concatenate([[0], np.clip(cuts, 0, max(n - 1, 0))]))
+    x1 = np.concatenate([x0[1:], [n]]).astype(np.int64)
+    x0 = x0.astype(np.int64)
+    nr = len(x0) if n else 0
+    counts = alloc(m)
+    tot = np.zeros(max(nr, 1), dtype=np.int64)
+    err = np.zeros(3, dtype=np.int64)
+    i64 = ctypes.c_int64
+    if lib.wg_list_label_counts(
+            _ptr(data), i64(nbytes), _ptr(lo, i64), _ptr(co, i64), i64(nr),
+            _ptr(x0, i64), _ptr(x1, i64), ctypes.c_int(width),
+            _ptr(counts, i64), _ptr(tot, i64), _ptr(err, i64)) < 0:
+        x, at = int(err[0]), int(err[1])
+        if err[2] == 1:
+            raise ValueError(f"node {x}'s labels end at bit {at}, its "
+                             f"successor's start at {int(lo[x + 1])}")
+        raise ValueError(f"node {x}'s labels run past the {8 * nbytes} "
+                         f"bits of the stream")
+    start = np.zeros(max(nr, 1), dtype=np.int64)
+    np.cumsum(tot[:-1], out=start[1:])
+    entries = alloc(int(tot.sum()))
+    lib.wg_list_label_entries(
+        _ptr(data), i64(nbytes), _ptr(lo, i64), _ptr(co, i64), i64(nr),
+        _ptr(x0, i64), _ptr(x1, i64), ctypes.c_int(width),
+        _ptr(counts, i64), _ptr(start, i64), _ptr(entries, i64))
+    return counts, entries

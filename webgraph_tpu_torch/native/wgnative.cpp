@@ -8,6 +8,8 @@
 // header-only reference scan of cold plans, the parallel encoder and the
 // streaming encoder of sequential sources.  MSB-first bit discipline; the
 // encoder is byte-identical to the JAX package's (tests/test_torch_native.py).
+// The port's own addition: the threaded decode of list-label streams
+// (tests/test_torch_list_labels.py holds it against a per-arc reader).
 //
 // Built with g++ on first use by webgraph_tpu_torch/ops/_build.py
 // (build_native); bound with ctypes in webgraph_tpu_torch/native/__init__.py.
@@ -1216,6 +1218,102 @@ int64_t wg_parse_arcs(const uint8_t* buf, int64_t len, int eof,
     }
     *consumed = p > len ? len : p;
     return count;
+}
+
+// List-label decode (FixedWidthIntListLabel / FixedWidthLongListLabel
+// streams, BitStreamArcLabelledImmutableGraph.java:66-120): node x's labels
+// start at bit lo[x], one per arc of [csr_off[x], csr_off[x + 1]), each the
+// gamma code of its length c, then c entries of w bits.  The nodes are cut
+// into nr ranges [x0[r], x1[r]) (equal shares of the arcs, one per thread).
+//
+// Pass 1 reads the lengths into counts[], skipping the entries, and checks
+// that every node ends exactly at lo[x + 1]; range_entries[r] gets the
+// range's entry total.  On a failure err[0..2] = (node, end bit, kind: 1
+// the node ends elsewhere -- read to its last arc, as a sequential reader
+// would -- or 2 a code runs past the nbits bits of the stream) of the
+// first failing node of the first failing range, and the return is -1.
+int64_t wg_list_label_counts(const uint8_t* data, int64_t len_bytes,
+                             const int64_t* lo, const int64_t* csr_off,
+                             int64_t nr, const int64_t* x0, const int64_t* x1,
+                             int w, int64_t* counts, int64_t* range_entries,
+                             int64_t* err) {
+    const int64_t nbits = len_bytes * 8;
+    std::vector<int64_t> bad((size_t)nr * 3, -1);
+    auto work = [&](int64_t r) {
+        BitReader rd(data, (size_t)len_bytes);
+        int64_t tot = 0;
+        for (int64_t x = x0[r]; x < x1[r]; x++) {
+            if (lo[x] < 0 || lo[x] > nbits) {
+                int64_t* b = &bad[(size_t)r * 3];
+                b[0] = x; b[1] = lo[x]; b[2] = 2;
+                return;
+            }
+            rd.pos = (size_t)lo[x];
+            for (int64_t j = csr_off[x]; j < csr_off[x + 1]; j++) {
+                int64_t u = rd.read_unary();
+                int64_t c = 0;
+                if (u > 62 || (int64_t)rd.pos + u > nbits) {
+                    c = -1;
+                } else if (u) {
+                    c = (int64_t)(((uint64_t)1 << u)
+                                  | rd.read_bits((int)u)) - 1;
+                }
+                if (c < 0 || (w && c > (nbits - (int64_t)rd.pos) / w)) {
+                    int64_t* b = &bad[(size_t)r * 3];
+                    b[0] = x; b[1] = (int64_t)rd.pos; b[2] = 2;
+                    return;
+                }
+                counts[j] = c;
+                tot += c;
+                rd.pos += (size_t)(c * w);
+            }
+            if ((int64_t)rd.pos != lo[x + 1]) {
+                int64_t* b = &bad[(size_t)r * 3];
+                b[0] = x; b[1] = (int64_t)rd.pos; b[2] = 1;
+                return;
+            }
+        }
+        range_entries[r] = tot;
+    };
+    std::vector<std::thread> pool;
+    for (int64_t r = 1; r < nr; r++) pool.emplace_back(work, r);
+    if (nr > 0) work(0);
+    for (auto& th : pool) th.join();
+    for (int64_t r = 0; r < nr; r++)
+        if (bad[(size_t)r * 3 + 2] > 0) {
+            for (int k = 0; k < 3; k++) err[k] = bad[(size_t)r * 3 + k];
+            return -1;
+        }
+    return 0;
+}
+
+// Pass 2: the entries of range r written from entries + range_start[r],
+// each arc's w-bit fields after the gamma code of counts[j] (pass 1 has
+// checked the stream).
+int64_t wg_list_label_entries(const uint8_t* data, int64_t len_bytes,
+                              const int64_t* lo, const int64_t* csr_off,
+                              int64_t nr, const int64_t* x0, const int64_t* x1,
+                              int w, const int64_t* counts,
+                              const int64_t* range_start, int64_t* entries) {
+    auto work = [&](int64_t r) {
+        BitReader rd(data, (size_t)len_bytes);
+        int64_t* out = entries + range_start[r];
+        for (int64_t x = x0[r]; x < x1[r]; x++) {
+            rd.pos = (size_t)lo[x];
+            for (int64_t j = csr_off[x]; j < csr_off[x + 1]; j++) {
+                const int64_t c = counts[j];
+                const int lg = 63 - __builtin_clzll((uint64_t)c + 1);
+                rd.pos += (size_t)(2 * lg + 1);   // the gamma code of c
+                for (int64_t k = 0; k < c; k++)
+                    *out++ = (int64_t)rd.read_bits(w);
+            }
+        }
+    };
+    std::vector<std::thread> pool;
+    for (int64_t r = 1; r < nr; r++) pool.emplace_back(work, r);
+    if (nr > 0) work(0);
+    for (auto& th : pool) th.join();
+    return 0;
 }
 
 }  // extern "C"

@@ -27,9 +27,10 @@ those totals.  *Unpack*: a fixed-width label of arc j sits at bit
 ``labeloffsets[src(j)] + (j - offsets[src(j)]) * w``, read with an
 MSB-first extract on the device; a gamma stream is m gamma codes back to
 back, so the port's native offset-stream decoder gives their prefix sums
-on the host (one upload); list labels are read per node with
-``ops/bitio.BitReader`` on the host.  Every unpack checks the stream
-against ``.labeloffsets``: each node's labels must end where the next
+on the host (one upload); list labels are read by the port's threaded
+native decode on the host (one upload; ``unpack_lists_plain``, the
+scalar ``BitReader`` per arc, is its plain version).  Every unpack checks
+the stream against ``.labeloffsets``: each node's labels must end where the next
 node's begin, and the last entry must equal the bits consumed and lie
 within the stream; any mismatch raises ``ValueError``.
 """
@@ -50,7 +51,7 @@ from .vencode import (_PAD_WORDS, _Split, _code, _emit, _words_to_bytes,
                       msb64, pack_gaps)
 
 __all__ = ["label_format", "pack_labels", "unpack_labels",
-           "gamma_prefix_sums"]
+           "gamma_prefix_sums", "unpack_lists_plain"]
 
 _I64 = torch.int64
 # arcs per chunk of the pack and of the fixed-width extract
@@ -211,7 +212,7 @@ def unpack_labels(data: np.ndarray, label_offsets, offsets: torch.Tensor,
         raise _mismatch(f"the last offset {lo_h[-1]} lies past the "
                         f"{8 * len(data)} bits of the stream")
     if kind == "list":
-        return _unpack_lists(data, lo_h, offsets, w)
+        return _unpack_lists(data, lo_h, offsets, w, tick)
     lo = torch.from_numpy(lo_h).to(dev)
     if kind == "fixed":
         if not torch.equal(lo, lo[0] + offsets * w):
@@ -243,12 +244,38 @@ def unpack_labels(data: np.ndarray, label_offsets, offsets: torch.Tensor,
 
 
 def _unpack_lists(data: np.ndarray, lo: np.ndarray, offsets: torch.Tensor,
-                  w: int):
-    """List labels, read per node with the scalar ``BitReader`` on the
-    host and uploaded once (ROADMAP queues a device decode)."""
+                  w: int, tick):
+    """List labels: the port's threaded native decode on the host
+    (``native.decode_list_labels``: node ranges of equal arc shares, a
+    pass of lengths and checks, then one of entries), written into pinned
+    buffers when the device is a card, and uploaded once."""
+    dev = offsets.device
+    keep = []
+
+    def alloc(k: int) -> np.ndarray:
+        t = torch.empty(k, dtype=_I64, pin_memory=dev.type == "cuda")
+        keep.append(t)
+        return t.numpy()
+
+    try:
+        _native.decode_list_labels(data, lo, offsets.cpu().numpy(), w,
+                                   alloc=alloc)
+    except ValueError as e:
+        raise _mismatch(str(e)) from None
+    tick("native_s")
+    counts, entries = (t.to(dev, non_blocking=True) for t in keep)
+    tick("upload_s")
+    return counts, entries
+
+
+def unpack_lists_plain(data: np.ndarray, lo: np.ndarray,
+                       offsets: torch.Tensor, w: int):
+    """The plain version of the list decode: per node and per arc, the
+    scalar ``BitReader`` on the host, then one upload.  The tests hold the
+    native decode against it; nothing else calls it."""
     dev = offsets.device
     offs = offsets.cpu().numpy()
-    r = BitReader(data)
+    r = BitReader(np.asarray(data, dtype=np.uint8))
     counts = np.empty(int(offs[-1]), dtype=np.int64)
     entries = []
     for x in range(len(offs) - 1):

@@ -129,12 +129,15 @@ def _encode_device(sco: torch.Tensor, ssu: torch.Tensor, settings, lo: int,
 
 def encode_shard(csr_off, succ, settings, basename: str, shard: int,
                  lo: int, hi: int, threads: int = 0,
-                 backend: str = "native", device=None) -> dict:
+                 backend: str = "native", device=None,
+                 node_base: int = 0) -> dict:
     """Encode nodes [lo, hi) of the graph ``(csr_off, succ)`` (numpy arrays
     or tensors on any device) with global ids and a window that starts
     empty at ``lo``, in ``threads`` ranges (0: one per core) as the native
     encoder splits them; write ``basename-h<shard>.{graph,offsets,meta}``
-    and return the meta.
+    and return the meta.  ``node_base``: the id of the arrays' first node,
+    so that a host holding only a range of the graph (``node_base <= lo``)
+    encodes it with the same ids.
 
     ``backend``: "native", the multithreaded C++ encoder on the host (the
     shard's arrays brought there); "cuda", the device encoder
@@ -142,8 +145,8 @@ def encode_shard(csr_off, succ, settings, basename: str, shard: int,
     same torch ops there), its bytes equal to the native encoder's at the
     same ``threads``."""
     threads = threads or (os.cpu_count() or 1)
-    a0, a1 = int(csr_off[lo]), int(csr_off[hi])
-    sco, ssu = csr_off[lo:hi + 1], succ[a0:a1]
+    a0, a1 = int(csr_off[lo - node_base]), int(csr_off[hi - node_base])
+    sco, ssu = csr_off[lo - node_base:hi - node_base + 1], succ[a0:a1]
     if backend == "native":
         graph_b, gbits, offs_b, _obits, st = _native.bv_encode(
             _host(sco) - a0, _host(ssu), settings, threads=threads,
@@ -170,8 +173,9 @@ def encode_shard(csr_off, succ, settings, basename: str, shard: int,
 def merge_shards(basename: str, n_shards: int, settings,
                  comment: str = "BVGraph properties",
                  keep_parts: bool = False) -> dict:
-    """The owner's pass, on the host: bit-exact concatenation of the shard
-    streams, the offsets rebased onto the merged stream, the statistics
+    """The owner's pass: bit-exact concatenation of the shard streams on
+    the host, the offsets rebased onto the merged stream and their gaps
+    packed on the card (on the host where there is none), the statistics
     summed into the properties (BVGraph.java:2432-2483).  Removes the
     parts unless ``keep_parts``."""
     from ..codecs.bvgraph import (GRAPH_EXTENSION, OFFSETS_EXTENSION,
@@ -203,7 +207,9 @@ def merge_shards(basename: str, n_shards: int, settings,
     gaps = (np.concatenate([[0], np.diff(starts), [base_bits - starts[-1]]])
             if n else np.zeros(1, dtype=np.int64))
     offs_b, _bits = pack_gaps(torch.from_numpy(gaps.astype(np.int64)),
-                              settings.offset_coding, settings.zeta_k)
+                              settings.offset_coding, settings.zeta_k,
+                              device="cuda" if torch.cuda.is_available()
+                              else "cpu")
     with open(basename + OFFSETS_EXTENSION, "wb") as f:
         f.write(offs_b)
     props = _properties(settings, n, base_bits,

@@ -15,9 +15,9 @@ values, or counts and entries).  A ``LabelledBatchGraph`` merges them:
 ``iter_labelled`` node by node on the host, as the JAX design does;
 ``to_arc_labelled`` in bulk on a device -- every batch concatenated in batch
 order, one stable sort, each run of equal arcs folded with the merge in
-order -- which gives the same graph.  Merges are elementwise tensor
-functions of the scalar labels; list labels are carried (``merge=None``)
-but not merged.
+order -- which gives the same graph.  A merge takes batches of scalar or
+list labels, the earlier occurrence first (``labelling.graph.fold_runs``,
+the ragged merge contract), on both routes.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 
 from ..core.graph import CSRGraph, ImmutableGraph, expand_ranges
 from ..labelling.graph import (ArcLabelledGraph, LabelSemiring, _from_keys,
-                               _scalar, cat_labels, fold_runs, gather_labels,
+                               _merged, cat_labels, fold_runs, gather_labels,
                                label_objects, stable_key_order)
 from ..labelling.labels import Label
 from . import _free_bytes
@@ -44,25 +44,18 @@ __all__ = ["process_labelled_batch", "LabelledBatchGraph",
 _I64 = torch.int64
 
 
-def _arc_range(values, a: int, b: int):
-    if isinstance(values, tuple):
-        return gather_labels(values, torch.arange(a, b,
-                                                  device=values[0].device))
-    return values[a:b]
-
-
-def _merge_runs(key: torch.Tensor, values, merge):
-    """Sorted keys with their labels -> one label per key: ``fold_runs``
-    for scalar labels; list labels keep the first occurrence and cannot
-    be merged."""
+def _arc_range(values, a: int, b: int, list_off=None):
+    """The labels of arcs [a, b); ``list_off``: the lists' entry offsets
+    (int64 [m + 1]), when the caller keeps them."""
     if not isinstance(values, tuple):
-        return fold_runs(key, values, merge)
-    start = torch.ones(key.numel(), dtype=torch.bool, device=key.device)
-    start[1:] = key[1:] != key[:-1]
-    first = torch.nonzero(start).flatten()
-    if merge is not None and first.numel() < key.numel():
-        raise TypeError("list labels are not merged on the device")
-    return key[first], gather_labels(values, first)
+        return values[a:b]
+    counts, entries = values
+    if list_off is None:
+        e0 = int(counts[:a].sum())
+        e1 = e0 + int(counts[a:b].sum())
+    else:
+        e0, e1 = int(list_off[a]), int(list_off[b])
+    return counts[a:b], entries[e0:e1]
 
 
 def process_labelled_batch(src: torch.Tensor, tgt: torch.Tensor, values,
@@ -101,7 +94,8 @@ class LabelledBatchGraph(ImmutableGraph):
     """Sequential labelled graph merging sorted labelled batch files.
 
     ``merge`` resolves duplicate (x, t) arcs across (or within) batches,
-    elementwise over int64 tensors, the earlier occurrence first -- the
+    a batch of scalar or list labels at a time, the earlier occurrence
+    first (``fold_runs``) -- the
     LabelMergeStrategy of the reference's labelled union/symmetrize
     (Transform.java:546-633); with ``merge=None`` the first occurrence in
     batch order wins.  ``num_arcs`` is the number of pairs spilled, before
@@ -141,6 +135,9 @@ class LabelledBatchGraph(ImmutableGraph):
         order and duplicates folded in that order."""
         streams = [_load_labelled_batch(p) for p in self.batches]
         cursors = [int(torch.searchsorted(s, start)) for s, _, _ in streams]
+        list_offs = [torch.cat([lab[0].new_zeros(1), torch.cumsum(lab[0], 0)])
+                     if isinstance(lab, tuple) else None
+                     for _, _, lab in streams]
         for x in range(start, self._n):
             tgts, labs = [], []
             for bi, (s, t, lab) in enumerate(streams):
@@ -148,15 +145,15 @@ class LabelledBatchGraph(ImmutableGraph):
                 e = int(torch.searchsorted(s, x, right=True))
                 if e > c:
                     tgts.append(t[c:e])
-                    labs.append(_arc_range(lab, c, e))
+                    labs.append(_arc_range(lab, c, e, list_offs[bi]))
                     cursors[bi] = e
             if not tgts:
                 yield x, np.zeros(0, dtype=np.int64), []
                 continue
             t = torch.cat(tgts)
             key, order = stable_key_order(torch.zeros_like(t), t)
-            key, vals = _merge_runs(key, gather_labels(cat_labels(labs),
-                                                       order), self.merge)
+            key, vals = fold_runs(key, gather_labels(cat_labels(labs),
+                                                     order), self.merge)
             yield x, key.numpy(), label_objects(vals, self.prototype)
 
     def iter_nodes(self, start: int = 0):
@@ -183,7 +180,7 @@ class LabelledBatchGraph(ImmutableGraph):
         del parts
         key, order = stable_key_order(src, tgt)
         del src, tgt
-        key, vals = _merge_runs(key, gather_labels(labs, order), self.merge)
+        key, vals = fold_runs(key, gather_labels(labs, order), self.merge)
         return ArcLabelledGraph(_from_keys(key, self._n), vals,
                                 self.prototype)
 
@@ -287,24 +284,45 @@ def compose_labelled(g0: ArcLabelledGraph, g1: ArcLabelledGraph,
                      semiring: LabelSemiring) -> ArcLabelledGraph:
     """Labelled composition (Transform.java:1792): the arc (x, z) exists
     when some y has (x, y) in g0 and (y, z) in g1; its label is the
-    semiring ``add`` (a ``scatter_reduce``) over all such paths of
-    ``multiply(l0, l1)`` (elementwise).  ``n = max(g0.num_nodes,
-    g1.num_nodes)``; a middle node outside g1 ends no path.  The join holds
-    one entry per path, the sum of the middle nodes' outdegrees; it is
-    checked against the device's free memory before it is allocated."""
+    semiring ``add`` over all such paths of ``multiply(l0, l1)`` (a batch
+    of path pairs, scalar or ragged).  ``add`` is a ``scatter_reduce``
+    name, or a merge folded over each arc's paths in the JAX order -- g0's
+    arcs in order, then g1's successors in order, the order the paths are
+    enumerated in, kept by a stable sort of their keys (``fold_runs``).
+    ``n = max(g0.num_nodes, g1.num_nodes)``; a middle node outside g1 ends
+    no path.  The join holds one entry per path, the sum of the middle
+    nodes' outdegrees, and for list labels the entries of both operands of
+    every path; it is checked against the device's free memory before it
+    is allocated."""
     if _labelled(g0).device != _labelled(g1).device:
         raise ValueError("both graphs must be on one device")
     dev = g0.device
     n = max(g0.num_nodes, g1.num_nodes)
-    v0, v1 = _scalar(g0, "compose_labelled"), _scalar(g1, "compose_labelled")
+    v0, v1 = g0.values, g1.values
+    ragged = isinstance(v0, tuple)
+    if ragged != isinstance(v1, tuple):
+        raise ValueError("compose_labelled: one graph's labels are lists, "
+                         "the other's scalars")
+    if isinstance(semiring.add, str) and ragged:
+        raise ValueError(f"compose_labelled: list labels need an add that "
+                         f"merges batches, not {semiring.add!r}")
     s0, t0 = g0.graph.arcs()
     inside = t0 < g1.num_nodes
     mid = torch.zeros_like(t0)
     mid[inside] = g1.graph.outdegrees()[t0[inside]]
     total = int(mid.sum())
     # the int64 path arrays (g0 arc, g1 arc, label, key), the gathers that
-    # feed them, and unique's sort and inverse
+    # feed them, and unique's sort and inverse (or the stable sort)
     need = 72 * total
+    if ragged:
+        # every path gathers l0's and l1's entries; the product and its
+        # sorted copy take as many again
+        c1 = torch.zeros(v1[0].numel() + 1, dtype=_I64, device=dev)
+        torch.cumsum(v1[0], 0, out=c1[1:])
+        per_y = c1[g1.graph.offsets[1:]] - c1[g1.graph.offsets[:-1]]
+        need += 32 * (int((mid * v0[0]).sum())
+                      + int(per_y[t0[inside]].sum()))
+        del c1, per_y
     free = _free_bytes(dev)
     if free is not None and need > free:
         raise MemoryError(f"compose_labelled: the join needs ~{need} bytes, "
@@ -315,11 +333,17 @@ def compose_labelled(g0: ArcLabelledGraph, g1: ArcLabelledGraph,
                                  output_size=total)
     a1 = expand_ranges(first, mid, dev)
     del first, mid, inside
-    lab = torch.as_tensor(semiring.multiply(v0[a0], v1[a1])).to(_I64)
     key = (s0[a0] << 32) | g1.graph.succ[a1].to(_I64)
+    lab = _merged(semiring.multiply(gather_labels(v0, a0),
+                                    gather_labels(v1, a1)),
+                  v0, total, "multiply")
     del a0, a1
-    ukey, inv = torch.unique(key, return_inverse=True)
-    del key
-    out = torch.zeros(ukey.numel(), dtype=_I64, device=dev)
-    out.scatter_reduce_(0, inv, lab, semiring.add, include_self=False)
+    if isinstance(semiring.add, str):
+        ukey, inv = torch.unique(key, return_inverse=True)
+        del key
+        out = torch.zeros(ukey.numel(), dtype=_I64, device=dev)
+        out.scatter_reduce_(0, inv, lab, semiring.add, include_self=False)
+    else:
+        key, order = torch.sort(key, stable=True)
+        ukey, out = fold_runs(key, gather_labels(lab, order), semiring.add)
     return ArcLabelledGraph(_from_keys(ukey, n), out, g0.prototype)

@@ -14,7 +14,6 @@ order on the host, feeding any codec's ``store``.
 
 from __future__ import annotations
 
-import heapq
 import os
 import tempfile
 from typing import Iterator, List, Optional, Tuple
@@ -30,6 +29,8 @@ __all__ = ["process_batch", "BatchGraph", "transpose_offline",
 DEFAULT_BATCH_SIZE = 10_000_000  # pairs (Transform.java DEFAULT_BATCH_SIZE)
 # arcs of the source graph read per chunk of nodes
 _READ_ARCS = 1 << 24
+# arcs of all batches merged per block of nodes (``BatchGraph.iter_nodes``)
+_MERGE_ARCS = 1 << 22
 
 
 def process_batch(src: torch.Tensor, tgt: torch.Tensor, temp_dir: str,
@@ -48,14 +49,15 @@ def process_batch(src: torch.Tensor, tgt: torch.Tensor, temp_dir: str,
 
 
 def _load_batch(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    arr = np.load(path, mmap_mode="r")
+    # plain arrays over the mapping: what is cut from them is no np.memmap
+    arr = np.asarray(np.load(path, mmap_mode="r"))
     return arr[0], arr[1]
 
 
 class BatchGraph(ImmutableGraph):
     """Sequential graph lazily merging sorted batch files (BatchGraph
-    :709-926).  Iteration merges all batches with a heap over per-batch
-    cursors; per-node lists are deduplicated across batches."""
+    :709-926).  Iteration merges all batches in blocks of nodes; per-node
+    lists are deduplicated across batches."""
 
     def __init__(self, num_nodes: int, num_arcs: int, batches: List[str]):
         self._n = num_nodes
@@ -84,29 +86,43 @@ class BatchGraph(ImmutableGraph):
         the copiable-iterator contract that lets a store split the merge
         at any node bound, as the reference re-opens its batch files per
         split (Transform.java :771-789, NodeIterator.copy(upperBound))."""
+        for x, hi, at, tgt in self.iter_blocks(start):
+            for y in range(x, hi):
+                yield y, tgt[at[y - x]:at[y - x + 1]]
+
+    def iter_blocks(self, start: int = 0) -> Iterator[
+            Tuple[int, int, np.ndarray, np.ndarray]]:
+        """The merge from ``start`` a block of nodes at a time: (x, hi,
+        offsets int64[hi - x + 1] from 0, successors int64) of nodes
+        [x, hi).  Each batch's arcs of the block (one binary search for
+        each end), one sort and dedup of their packed ``(src << 32) | tgt``
+        keys; a block holds about ``_MERGE_ARCS`` arcs of all batches
+        together.  ``host_csr`` and the native streaming store read whole
+        blocks."""
         streams = [_load_batch(p) for p in self.batches]
         cursors = [int(np.searchsorted(s, start)) for s, _ in streams]
-        heap = []
-        for bi, (s, _t) in enumerate(streams):
-            c = cursors[bi]
-            if c < len(s):
-                heapq.heappush(heap, (int(s[c]), bi))
-        empty = np.zeros(0, dtype=np.int64)
-        for x in range(start, self._n):
-            if not heap or heap[0][0] != x:
-                yield x, empty
-                continue
-            parts = []
-            while heap and heap[0][0] == x:
-                _, bi = heapq.heappop(heap)
-                s, t = streams[bi]
-                c = cursors[bi]
-                e = int(np.searchsorted(s, x, side="right"))
-                parts.append(t[c:e])
-                cursors[bi] = e
-                if e < len(s):
-                    heapq.heappush(heap, (int(s[e]), bi))
-            yield x, np.unique(np.concatenate(parts))
+        n, x, step = self._n, start, 1 << 12
+        while x < n:
+            while True:
+                hi = min(n, x + step)
+                ends = [int(np.searchsorted(s, hi)) for s, _ in streams]
+                arcs = sum(e - c for e, c in zip(ends, cursors))
+                if arcs <= 2 * _MERGE_ARCS or hi == x + 1:
+                    break
+                step = max(1, step // 2)
+            if arcs:
+                key = np.unique(np.concatenate(
+                    [(s[c:e] << 32) | t[c:e] for (s, t), c, e
+                     in zip(streams, cursors, ends)]))
+                yield (x, hi, np.searchsorted(key >> 32, np.arange(x, hi + 1)),
+                       key & 0xFFFFFFFF)
+            else:
+                yield (x, hi, np.zeros(hi - x + 1, dtype=np.int64),
+                       np.zeros(0, dtype=np.int64))
+            cursors = ends
+            x = hi
+            if arcs < _MERGE_ARCS // 2:
+                step *= 2
 
     def cleanup(self) -> None:
         for p in self.batches:
