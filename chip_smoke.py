@@ -41,12 +41,27 @@ Phases, each printing one line:
    (``copy_ms``); both kernels against their plain versions at the shapes
    the slice gave them; and the CSR bit-exact against the native
    sequential decoder;
-6. files: the slice's device CSR is written to a BVGraph basename in a
+6. bench: the port's benchmark entry, ``python -m webgraph_tpu_torch.bench``,
+   in a process of its own, twice.  First on a stand-in for cnr-2000 (a
+   325,557-node synthetic stored single-stream with cnr-2000's settings,
+   w=7 maxref=3 minInterval=3 zeta_3) and the slice's synthetic (its
+   cache): its last line must hold the four headline keys, every row must
+   be bit-exact, the device encode byte-identical, no arc decoded on the
+   host, B1 and B2 launched by every decode, and the headline within 2x of
+   the slice's ``decode_Medges_per_s`` (a check on the protocol, not a
+   claim).  Then on a 1,000,000-node synthetic whose nodes 0, 250,000,
+   500,000 and 750,000 hold seeded-random lists of 131,072 to 786,432
+   successors: the same checks, and the graph planned here as the bench
+   plans it, each hub's lane launched alone, the whole B1 pass and the
+   pass without the hub lanes timed by CUDA events (the temporary
+   directory is ``.bench_smoke_*/`` under the checkout, removed at the
+   end);
+7. files: the slice's device CSR is written to a BVGraph basename in a
    temporary directory under the checkout (``BVGraph.store``, the native
    encoder), read back to the card with ``load_csr(basename)`` -- the
    cold plan, the resolve passes and ``decode_to_csr``, so B1 and B2, with
    launch counts reset just before and read just after -- and held
-   ``torch.equal`` to it; a 1,000,000-node synthetic (``OFFLINE_NODES``:
+   ``torch.equal`` to it; a 500,000-node synthetic (``OFFLINE_NODES``:
    the EF bulk store is numpy on the host, ~100 s at the slice) is written
    as an EFGraph (``EFGraph.store``, the bulk numpy writer), decoded on
    the card (``EFGraph.to_device``, torch ops) and held equal to it; the line
@@ -54,7 +69,7 @@ Phases, each printing one line:
    the decode stages, the EF decode's rate and peak bytes, its split into
    the plan (upload, outdegrees) and decodes of the resident stream (one
    under ``torch.profiler``), and the card;
-7. encode: the device encoder (``BVGraph.store(backend="cuda")``,
+8. encode: the device encoder (``BVGraph.store(backend="cuda")``,
    ``ops/vencode.py``) and the transforms at the slice's scale.  The
    slice's device CSR is stored and held byte-equal (``.graph``,
    ``.offsets``, ``.properties`` bar the date line) to the single-stream
@@ -66,7 +81,7 @@ Phases, each printing one line:
    the four is read back with ``load_csr`` -- launch counts reset just
    before, B1 and B2 launched -- and held ``torch.equal`` to the graph
    stored.  Then ``transpose_offline`` and ``symmetrize_offline`` of a
-   1,000,000-node synthetic (``OFFLINE_NODES``), in 5 batches or more,
+   500,000-node synthetic (``OFFLINE_NODES``), in 5 batches or more,
    merged and stored with the device encoder and read back equal to the
    in-memory transforms.
    The line gives each store's seconds and rate, its split (setup, arc
@@ -80,12 +95,12 @@ Phases, each printing one line:
    (``FixedWidthIntListLabel(A,20)``, about one entry an arc): stored with
    the slice on the card, the files checked bit by bit, read back with
    ``to_device`` (the threaded native list decode, one upload), filter
-   and SCC with a list predicate; at 1,000,000 nodes the offline
+   and SCC with a list predicate; at 500,000 nodes the offline
    transpose twice, the offline symmetrize and the union with a
    concatenation merge (checked pair by pair), ``iter_labelled`` against
    the bulk merge, the store byte-equal to the native backend's on the
    host; at 100,000 nodes ``compose_labelled`` under a list semiring;
-8. cli: the command line (``webgraph_tpu_torch/cli``) as a user runs it,
+9. cli: the command line (``webgraph_tpu_torch/cli``) as a user runs it,
    on the slice stored once as a BVGraph basename in ``.cli_smoke_*/``
    under the checkout (removed at the end).  ``python -m
    webgraph_tpu_torch speedtest <basename> --repeat 3`` in a process of
@@ -102,7 +117,7 @@ Phases, each printing one line:
    ``.ids`` equal the source's, ``.ids`` in first-appearance order, the
    native parse rate), ``transform symmetrize`` then ``cc``, equal to the
    in-memory symmetrization's components;
-9. parallel: multi-host and multi-device (``webgraph_tpu_torch/parallel``)
+10. parallel: multi-host and multi-device (``webgraph_tpu_torch/parallel``)
    at the slice's scale, in ``.parallel_smoke_*/`` under the checkout
    (removed at the end).  ``store_multihost(graph, 4, backend="cuda")`` of
    the device CSR, its ``.graph``/``.offsets`` held byte-equal (sha256) to
@@ -119,7 +134,7 @@ Phases, each printing one line:
    equal to the native decode.  The line gives the shard bounds, each
    timing, the ranks' process start and CUDA init, peak bytes and the
    card;
-10. analytics: on the slice's device CSR (the plan freed), each step timed
+11. analytics: on the slice's device CSR (the plan freed), each step timed
    alone (host clock + synchronise, peak device bytes) and then checked
    against something independent of the code under test: stats against
    numpy bincounts of the native decode's CSR; the transpose's offsets and
@@ -134,7 +149,7 @@ Phases, each printing one line:
    HyperBall modes on the 20,000-node check graph, register- and
    NF-equal.  The analytics launch no hand-written kernel (torch ops
    only): the line reads the counts, reset just before;
-11. big: a graph past 2^31 arcs (2^27 nodes, about 2.28G arcs, a stream
+12. big: a graph past 2^31 arcs (2^27 nodes, about 2.28G arcs, a stream
    past 2^32 bits), generated on the card and encoded on every host
    thread in node ranges of 2^24, joined by ``merge_shards``, decoded by
    ``decode_big_slices`` in slices of 2^27 arcs -- launch counts reset
@@ -228,8 +243,9 @@ CENTRALITY_CHECKED = 4
 # the encode phase's offline transforms and the cli phase's text formats: a
 # smaller graph cut into this many batches or more; the EF bulk store
 # (numpy on the host, ~100 s at the slice) runs at OFFLINE_NODES too, so
-# that the whole script stays inside its time limit
-OFFLINE_NODES = 1_000_000
+# that the whole script, the bench phase included, stays inside its time
+# limit
+OFFLINE_NODES = 500_000
 OFFLINE_BATCHES = 5
 # the labels phase: the geometric distribution of the gamma-coded labels
 # (P(v) = p (1 - p)**v, mean 4), the fixed labels its filter keeps, the
@@ -677,6 +693,182 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
                 "compact_runs": bound(b2_bytes)},
         library_ms={"bv_decode_lanes": None, "compact_runs": library_ms},
         bit_exact=True)
+
+
+# ---- the bench phase: the port's benchmark entry ------------------------
+
+# cnr-2000 (the JAX bench's fixture, bench.py:3-4): its node count and
+# settings, for the stand-in the bench decodes in its place
+CNR_NODES = 325_557
+CNR_SETTINGS = BVGraphSettings(window_size=7, max_ref_count=3,
+                               min_interval_length=3, zeta_k=3)
+# the graph with hub nodes: a synthetic whose nodes HUB_IDS get sorted,
+# distinct, seeded-random lists of HUB_DEGREES successors
+HUB_NODES = 1_000_000
+HUB_IDS = (0, 250_000, 500_000, 750_000)
+HUB_DEGREES = (131_072, 262_144, 524_288, 786_432)
+HUB_SEED = 13
+BENCH_TIMEOUT_S = 600
+BENCH_KEYS = ["metric", "unit", "value", "vs_baseline"]
+
+
+def hub_graph(n: int, ids, degrees, seed: int) -> tuple:
+    """``synthesize_webgraph(n)`` with the lists of nodes ``ids`` (ascending)
+    replaced by sorted, distinct, seeded-random lists of ``degrees``
+    successors: (offsets, successors), int64."""
+    co, su = synthesize_webgraph(n)
+    rng = np.random.default_rng(seed)
+    deg = np.diff(co)
+    parts, prev = [], 0
+    for x, d in zip(ids, degrees):
+        parts += [su[co[prev]:co[x]],
+                  np.sort(rng.choice(n, size=d, replace=False))]
+        deg[x] = d
+        prev = x + 1
+    parts.append(su[co[prev]:])
+    out = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=out[1:])
+    return out, np.concatenate(parts).astype(np.int64)
+
+
+def _store_single_stream(co, su, base: str, settings) -> None:
+    """Store (co, su) as a BVGraph basename in one stream (one thread), so
+    the bench's device encode can be held byte-identical to it."""
+    n = len(co) - 1
+    if int(su.max(initial=-1)) >= n or (np.diff(su) <= 0)[
+            np.diff(np.repeat(np.arange(n), np.diff(co))) == 0].any():
+        raise AssertionError("a stored list is not ascending below n")
+    BVGraph.store(CSRGraph(co, su, device="cpu"), base, settings=settings,
+                  num_threads=1)
+
+
+def _run_bench(basename: str, synth_nodes: int, extra: str) -> dict:
+    """``python -m webgraph_tpu_torch.bench`` in a process of its own on
+    the card: its headline, its rows (each checked: no error, no skip,
+    bit-exact, byte-identical, no arc decoded on the host, B1 and B2
+    launched by every decode) and its wall seconds."""
+    env = dict(os.environ, BENCH_SYNTH_NODES=str(synth_nodes))
+    t0 = time.perf_counter()
+    sp = subprocess.run([sys.executable, "-m", "webgraph_tpu_torch.bench",
+                         "--basename", basename, "--extra-out", extra],
+                        cwd=ROOT, env=env, capture_output=True, text=True,
+                        timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if sp.returncode != 0:
+        raise AssertionError(f"python -m webgraph_tpu_torch.bench exited "
+                             f"{sp.returncode}: {sp.stderr[-3000:]}")
+    head = json.loads(sp.stdout.strip().splitlines()[-1])
+    if sorted(head) != BENCH_KEYS:
+        raise AssertionError(f"the bench's last line is {head}")
+    with open(extra) as f:
+        rows = json.load(f)
+    for key, row in rows.items():
+        bad = [w for w in ("error", "skipped") if w in row]
+        bad += [w for w in ("bit_exact", "byte_identical")
+                if row.get(w, True) is not True]
+        if row.get("fallback_arc_frac", 0) != 0:
+            bad.append("fallback_arc_frac")
+        if "spec" in row:
+            bad += [k for k in KERNELS if row["launches"][k] <= 0]
+        if bad:
+            raise AssertionError(f"bench row {key}: {bad}: {row}")
+    return dict(headline=head, rows=rows, wall_s=wall)
+
+
+def _hub_lanes(dev, basename: str, co, su) -> dict:
+    """The hub graph planned here as the bench plans it: each hub's lane
+    launched alone (CUDA events), the whole B1 pass and the pass without
+    the hub lanes, the decode held equal to (co, su).  ``hub_share``: the
+    part of the whole pass the hub lanes add, 1 - rest / whole."""
+    bv = BVGraph.load(basename)
+    data = np.asarray(bv.data)
+    outd = native.decode_outdegrees(data, bv.offsets,
+                                    bv.settings.outdegree_coding)
+    plan = kplan.plan_kernel_decode(bv.offsets, outd, bv.settings, data,
+                                    device=dev)
+    resolve_halos(plan)
+    csr_off, succ, filled = decode_to_csr(plan)
+    if (filled or not np.array_equal(csr_off, co)
+            or not np.array_equal(succ.cpu().numpy(), su)):
+        raise AssertionError("the hub graph's decode differs from its CSR")
+    del succ
+    lane_arcs = plan.store_off[1:] - plan.store_off[:-1] - plan.halo_arcs
+    steps = kdecode.decode_chunked(plan)[:, kdecode.DIAG_STEPS].cpu().numpy()
+    whole_ms = min(cuda_ms(lambda: kdecode.decode_chunked(plan))
+                   for _ in range(3))
+    hub_lanes = np.searchsorted(plan.chunk_starts, HUB_IDS, side="right") - 1
+    lanes = []
+    for x, d, ln in zip(HUB_IDS, HUB_DEGREES, hub_lanes.tolist()):
+        one = plan.meta[ln:ln + 1]
+        ms = cuda_ms(lambda: kdecode.decode_lanes(plan.words, one, plan.store,
+                                                  plan.spec), warmup=1)
+        lanes.append(dict(node=x, degree=d, lane=ln,
+                          lane_nodes=int(plan.exp_nodes[ln]),
+                          lane_arcs=int(lane_arcs[ln]),
+                          lane_steps=int(steps[ln]), alone_ms=ms,
+                          steps_per_us=int(steps[ln]) / (ms * 1e3)))
+    # every other lane, in the plan's order (costliest first)
+    keep = np.ones(plan.lanes, dtype=bool)
+    keep[hub_lanes] = False
+    order = plan.order.cpu().numpy()
+    new = np.cumsum(keep) - 1
+    rest_order = torch.from_numpy(
+        new[order[keep[order]]].astype(np.int32)).to(dev)
+    rest_meta = plan.meta[torch.from_numpy(keep).to(dev)]
+    rest_ms = min(cuda_ms(lambda: kdecode.decode_lanes(
+        plan.words, rest_meta, plan.store, plan.spec, rest_order),
+        warmup=1) for _ in range(3))
+    slowest = max(r["alone_ms"] for r in lanes)
+    out = dict(lanes=plan.lanes, longest_lane_arcs=int(lane_arcs.max()),
+               rest_longest_lane_arcs=int(lane_arcs[keep].max()),
+               whole_ms=whole_ms, rest_ms=rest_ms, hub_lanes=lanes,
+               slowest_hub_lane_ms=slowest,
+               slowest_hub_lane_share=slowest / whole_ms,
+               hub_share=1 - rest_ms / whole_ms)
+    del plan, rest_meta, rest_order
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bench(dev, card: str, slice_res: dict) -> dict:
+    """``python -m webgraph_tpu_torch.bench`` twice, each in a process of its
+    own: on a stand-in for cnr-2000 with the uk-2002-scale synthetic (the
+    slice's cache), then on a graph with hub nodes alone; the hub graph's
+    lanes timed here.  The directory is removed at the end."""
+    out = dict(card=card)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix=".bench_smoke_", dir=ROOT)
+    try:
+        # 1. cnr-2000's node count and settings, and the synthetic
+        standin = os.path.join(tmp, "cnr2000_standin")
+        t0 = time.perf_counter()
+        _store_single_stream(*synthesize_webgraph(CNR_NODES), standin,
+                             CNR_SETTINGS)
+        out["standin_store_s"] = time.perf_counter() - t0
+        run = _run_bench(standin, SLICE_NODES, os.path.join(tmp, "a.json"))
+        got = run["headline"]
+        want = slice_res["decode_Medges_per_s"]
+        if (got["metric"] != "bvgraph_cold_decode_uk2002scale_edges_per_sec"
+                or not want / 2 <= got["value"] <= want * 2):
+            raise AssertionError(f"the bench's headline {got} is not within "
+                                 f"2x of the slice's {want} Medges/s")
+        out["standin"] = run
+        out["headline_over_slice"] = got["value"] / want
+
+        # 2. the graph with hub nodes
+        hub = os.path.join(tmp, "hubs")
+        t0 = time.perf_counter()
+        co, su = hub_graph(HUB_NODES, HUB_IDS, HUB_DEGREES, HUB_SEED)
+        _store_single_stream(co, su, hub, BVGraphSettings())
+        out["hub_store_s"] = time.perf_counter() - t0
+        out["hub"] = _run_bench(hub, 0, os.path.join(tmp, "b.json"))
+        out["hub"]["lanes"] = _hub_lanes(dev, hub, co, su)
+        out["hub"].update(nodes=HUB_NODES, arcs=int(co[-1]))
+        del co, su
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def _sizes(base: str) -> dict:
@@ -2721,6 +2913,7 @@ def main() -> int:
     res.update(input_made=input_src, input_made_s=input_made_s)
     emit("slice", res)
     torch.cuda.empty_cache()
+    emit("bench", phase_bench(dev, card, res))
     files = phase_files(dev, card, **ctx)
     emit("files", files)
     t0 = time.perf_counter()
