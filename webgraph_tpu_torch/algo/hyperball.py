@@ -30,6 +30,7 @@ import torch
 
 from .. import state
 from ..core.graph import CSRGraph, expand_ranges
+from ..utils.trace import count, span
 
 __all__ = ["HyperBall", "hyperloglog_init", "hyperloglog_init_device",
            "estimate_counts", "estimate_counts_device", "device_round",
@@ -311,15 +312,23 @@ class HyperBall:
         mark[preds.to(torch.int64)] = True
         return torch.nonzero(mark).squeeze(1)
 
-    def _round_plan(self):
-        """(mode, must-check nodes or None for all)."""
+    def _round_mode(self) -> str:
+        """"local" or "systolic" when only the predecessors of last
+        round's modified counters need merging, else "dense"."""
         n = self.g.num_nodes
         if (self.gt is not None and self._mod_mask is not None
                 and self.modified < n // 2):
-            mode = ("local" if self.modified * self.g.num_arcs * 10 < n * n
+            return ("local" if self.modified * self.g.num_arcs * 10 < n * n
                     else "systolic")
-            return mode, self._must_check()
-        return "dense", None
+        return "dense"
+
+    def _mark(self, changed: torch.Tensor) -> None:
+        """Keep the round's changed nodes as the next round's mask."""
+        mask = torch.zeros(self.g.num_nodes, dtype=torch.bool,
+                           device=self.device)
+        mask[changed] = True
+        self._mod_mask = mask
+        self.modified = changed.numel()
 
     def _merge(self, nodes: torch.Tensor, regs) -> tuple:
         """Merged registers of ``nodes`` (device int64) from the successor
@@ -343,72 +352,97 @@ class HyperBall:
         new = _scatter_max_rows(old.clone(), seg, table, rows)
         return new, (new != old).any(1), aidx.numel()
 
-    def _iterate_device(self, mode: str, must: Optional[torch.Tensor]):
+    def _iterate_device(self, must: Optional[torch.Tensor]):
         if must is None:
-            new = device_round(None, self.g.succ, self.regs,
-                               src=self.g.arc_sources())
-            changed = torch.nonzero((new != self.regs).any(1)).squeeze(1)
-            self.regs = new
+            with span("hyperball.merge"):
+                new = device_round(None, self.g.succ, self.regs,
+                                   src=self.g.arc_sources())
+            with span("hyperball.changed"):
+                changed = torch.nonzero((new != self.regs).any(1)).squeeze(1)
+                self.regs = new
+                self._mark(changed)
             return changed, self.g.num_arcs
-        new, ch, tot = self._merge(must, self.regs)
-        self.regs[must] = new
-        return must[ch], tot
+        with span("hyperball.merge"):
+            new, ch, tot = self._merge(must, self.regs)
+            self.regs[must] = new
+        with span("hyperball.changed"):
+            changed = must[ch]
+            self._mark(changed)
+        return changed, tot
 
     def _iterate_external(self, must: Optional[torch.Tensor]):
         """Batches of <= external_chunk arcs of the active nodes, each read
         from the previous round's registers; updates applied after."""
         n = self.g.num_nodes
-        if must is None:
-            must = torch.arange(n, device=self.device)
-        cnt = (self.g.offsets[must + 1] - self.g.offsets[must]).cpu().numpy()
-        ccum = np.concatenate([[0], np.cumsum(cnt)])
-        updates, changed, touched = [], [], 0
-        lo = 0
-        while lo < len(cnt):
-            hi = int(np.searchsorted(ccum, ccum[lo] + self.external_chunk,
-                                     "right")) - 1
-            hi = min(max(hi, lo + 1), len(cnt))
-            b = must[lo:hi]
-            new, ch, tb = self._merge(b, None)
-            if bool(ch.any()):
-                updates.append((b[ch].cpu().numpy(), new[ch].cpu().numpy()))
-                changed.append(b[ch])
-            touched += tb
-            lo = hi
-        for rows, vals in updates:
-            self.regs[rows] = vals
-        changed = (torch.cat(changed) if changed else
-                   torch.zeros(0, dtype=torch.int64, device=self.device))
+        with span("hyperball.merge"):
+            if must is None:
+                must = torch.arange(n, device=self.device)
+            cnt = (self.g.offsets[must + 1]
+                   - self.g.offsets[must]).cpu().numpy()
+            ccum = np.concatenate([[0], np.cumsum(cnt)])
+            updates, changed, touched = [], [], 0
+            lo = 0
+            while lo < len(cnt):
+                hi = int(np.searchsorted(ccum, ccum[lo] + self.external_chunk,
+                                         "right")) - 1
+                hi = min(max(hi, lo + 1), len(cnt))
+                b = must[lo:hi]
+                new, ch, tb = self._merge(b, None)
+                if bool(ch.any()):
+                    updates.append((b[ch].cpu().numpy(),
+                                    new[ch].cpu().numpy()))
+                    changed.append(b[ch])
+                touched += tb
+                lo = hi
+            for rows, vals in updates:
+                self.regs[rows] = vals
+        with span("hyperball.changed"):
+            changed = (torch.cat(changed) if changed else
+                       torch.zeros(0, dtype=torch.int64, device=self.device))
+            self._mark(changed)
         return changed, touched
 
     def iterate(self) -> int:
         """One iteration; returns the number of modified counters
-        (HyperBall.iterate :1000)."""
-        n = self.g.num_nodes
+        (HyperBall.iterate :1000).
+
+        The round is the span ``wg.hyperball.round.<mode>``, ``<mode>`` as
+        ``mode_history`` records it, with children
+        ``wg.hyperball.must_check`` (systolic and local rounds),
+        ``wg.hyperball.merge``, ``wg.hyperball.changed`` and
+        ``wg.hyperball.estimate``; the arcs it merges add to the counter
+        ``hyperball.arcs`` (``utils/trace.py``)."""
         t = self.iteration + 1
-        mode, must = self._round_plan()
+        mode = self._round_mode()
+        sparse = mode != "dense"
         if self.external_chunk:
-            changed, touched = self._iterate_external(must)
             mode += "-external"
-        else:
-            changed, touched = self._iterate_device(mode, must)
-        self.mode_history.append(mode)
-        self.arcs_touched.append(int(touched))
-        mask = torch.zeros(n, dtype=torch.bool, device=self.device)
-        mask[changed] = True
-        self._mod_mask = mask
-        self.modified = changed.numel()
-        self.iteration = t
-        # incremental count update: only changed counters moved
-        if self.modified:
-            new_counts = self._estimate(changed)
-            delta = torch.clamp(new_counts - self._counts[changed], min=0.0)
-            if self.sum_of_distances is not None:
-                self.sum_of_distances[changed] += t * delta
-            if self.sum_of_inverse_distances is not None:
-                self.sum_of_inverse_distances[changed] += delta / t
-            self._counts[changed] = new_counts
-        self.neighbourhood_function.append(float(self._counts.sum()))
+        with span("hyperball.round." + mode):
+            must = None
+            if sparse:
+                with span("hyperball.must_check"):
+                    must = self._must_check()
+            if self.external_chunk:
+                changed, touched = self._iterate_external(must)
+            else:
+                changed, touched = self._iterate_device(must)
+            self.mode_history.append(mode)
+            self.arcs_touched.append(int(touched))
+            count("hyperball.arcs", touched)
+            self.iteration = t
+            # incremental count update: only changed counters moved
+            with span("hyperball.estimate"):
+                if self.modified:
+                    new_counts = self._estimate(changed)
+                    delta = torch.clamp(new_counts - self._counts[changed],
+                                        min=0.0)
+                    if self.sum_of_distances is not None:
+                        self.sum_of_distances[changed] += t * delta
+                    if self.sum_of_inverse_distances is not None:
+                        self.sum_of_inverse_distances[changed] += delta / t
+                    self._counts[changed] = new_counts
+                self.neighbourhood_function.append(
+                    float(self._counts.sum()))
         return self.modified
 
     def run(self, upper_bound: int = -1, threshold: float = -1.0

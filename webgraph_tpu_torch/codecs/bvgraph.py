@@ -53,6 +53,7 @@ from ..ops.resolve import resolve_halos
 from ..settings import BVGraphSettings, CompressionFlags
 from ..settings import CompressionFlags as _C
 from ..utils import properties as javaprops
+from ..utils.trace import span
 
 __all__ = ["BVGraph", "BVGraphSettings", "CompressionFlags"]
 
@@ -446,8 +447,16 @@ class BVGraph(ImmutableGraph):
         native sequential decoder runs on the host instead, its CSR
         uploaded: the reference's own semantics.  The result's ``report``
         says which ("kernel" or "host"; "empty" for n = 0, which reaches
-        neither) and times the stages on the host clock, each ending in a
-        synchronise."""
+        neither) and gives the stages' seconds on the host clock, each
+        ending in a synchronise.
+
+        The call is the span ``wg.to_device`` and each stage a child span
+        (``utils/trace.py``), whose seconds the ``report`` gives:
+        ``read_s`` is ``wg.files.read`` (a mapped stream read into memory),
+        ``plan_s`` is ``wg.plan`` (bit offsets, outdegrees and the cold
+        plan), ``resolve_s`` is ``wg.resolve``, ``decode_to_csr_s`` the rest
+        (``wg.decode_to_csr`` and ``wg.from_decoded``); on the host route
+        ``host_decode_s`` is ``wg.plan`` and ``wg.host_decode``."""
         dev = require_cuda() if device is None else torch.device(device)
         n, s = self._n, self.settings
         if n == 0:
@@ -455,32 +464,42 @@ class BVGraph(ImmutableGraph):
                          device=dev)
             g.report = dict(format="BVGraph", route="empty")
             return g
-        data = self.data
-        if isinstance(data, np.memmap):   # read into memory once, here
-            data = np.array(data, dtype=np.uint8)
-        t0 = time.perf_counter()
-        offsets = self.offsets_array()
-        outd = _native.decode_outdegrees(data, offsets, s.outdegree_coding)
-        plan = plan_kernel_decode(offsets, outd, s, data, device=dev)
-        if plan is None:
-            co, su = _native.bv_decode_all(data, n, self._m, s)
-            g = CSRGraph(co, su, device=dev)
-            sync(dev)
-            g.report = dict(format="BVGraph", route="host",
-                            host_decode_s=time.perf_counter() - t0)
-            return g
-        sync(dev)
-        t1 = time.perf_counter()
-        passes = resolve_halos(plan)
-        sync(dev)
-        t2 = time.perf_counter()
-        co, succ, filled = decode_to_csr(plan)
-        g = CSRGraph.from_decoded(co, succ)
-        del plan, succ
-        sync(dev)
-        g.report = dict(format="BVGraph", route="kernel", plan_s=t1 - t0,
-                        resolve_s=t2 - t1, resolve_passes=passes,
-                        decode_to_csr_s=time.perf_counter() - t2,
+        with span("to_device") as whole:
+            with span("files.read") as read:
+                data = self.data
+                if isinstance(data, np.memmap):   # read into memory once
+                    data = np.array(data, dtype=np.uint8)
+            with span("plan") as planned:
+                with span("plan.offsets"):
+                    offsets = self.offsets_array()
+                with span("plan.outdegrees"):
+                    outd = _native.decode_outdegrees(data, offsets,
+                                                     s.outdegree_coding)
+                plan = plan_kernel_decode(offsets, outd, s, data, device=dev)
+                if plan is not None:
+                    sync(dev)
+            if plan is None:
+                with span("host_decode") as host:
+                    co, su = _native.bv_decode_all(data, n, self._m, s)
+                    g = CSRGraph(co, su, device=dev)
+                    sync(dev)
+                g.report = dict(format="BVGraph", route="host",
+                                read_s=read.seconds,
+                                host_decode_s=planned.seconds + host.seconds)
+                return g
+            with span("resolve") as resolved:
+                passes = resolve_halos(plan)
+                sync(dev)
+            co, succ, filled = decode_to_csr(plan)
+            with span("from_decoded"):
+                g = CSRGraph.from_decoded(co, succ)
+                del plan, succ
+                sync(dev)
+        g.report = dict(format="BVGraph", route="kernel", read_s=read.seconds,
+                        plan_s=planned.seconds, resolve_s=resolved.seconds,
+                        resolve_passes=passes,
+                        decode_to_csr_s=whole.seconds - read.seconds
+                        - planned.seconds - resolved.seconds,
                         fallback_arcs=filled)
         return g
 

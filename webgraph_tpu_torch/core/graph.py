@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..utils import properties as javaprops
+from ..utils.trace import span
 
 __all__ = ["CSRGraph", "expand_ranges", "ImmutableGraph", "load", "store",
            "load_csr", "register_graph_class", "GRAPH_CLASS_REGISTRY",
@@ -380,15 +381,18 @@ def store(graph, basename: str, graph_class=None, **kwargs):
 
 def load_csr(basename: str, device=None) -> CSRGraph:
     """The graph at ``basename`` as a ``CSRGraph`` on ``device``: the GPU
-    when None, the CPU only when the caller names it.  Loads the files
-    (``load_s`` in the result's ``report``), then the codec's
-    ``to_device`` decodes on the device."""
+    when None, the CPU only when the caller names it.  Loads the files,
+    then the codec's ``to_device`` decodes on the device.
+
+    The call is the span ``wg.load_csr``, the files' load its child
+    ``wg.files``, whose seconds are ``load_s`` in the result's ``report``
+    (``utils/trace.py``)."""
     from ..device import require_cuda
 
     dev = require_cuda() if device is None else torch.device(device)
-    t0 = time.perf_counter()
-    g = load(basename)
-    load_s = time.perf_counter() - t0
-    csr = g.to_device(dev)
-    csr.report = dict(csr.report, load_s=load_s)
+    with span("load_csr"):
+        with span("files") as files:
+            g = load(basename)
+        csr = g.to_device(dev)
+    csr.report = dict(csr.report, load_s=files.seconds)
     return csr

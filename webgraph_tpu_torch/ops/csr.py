@@ -20,6 +20,7 @@ import torch
 
 from .. import native as _native
 from ..core.graph import expand_ranges
+from ..utils.trace import span
 
 from .kcompact import compact, plan_compact
 from .kdecode import LanePlan, decode_chunked, lanes_flagged
@@ -91,17 +92,32 @@ def decode_to_csr(plan: LanePlan):
     Returns (csr_off int64[n-first+1] host, succ int32[m] device,
     fallback_arcs).  ``csr_off`` is the plan's own array, the same on
     every call: read it, do not write it.  Cold plans resolve their halos
-    first.  Only a flagged lane brings the diagnostics to the host."""
-    if plan.cold and not plan.resolved:
-        resolve_halos(plan)
-    if plan.compact_plan is None:
-        plan_csr_index(plan)
-    diag = decode_chunked(plan)
-    flagged = lanes_flagged(plan, diag)
-    bad = flagged.cpu().numpy() if bool(flagged.any()) else None
-    cp = plan.compact_plan
-    if bad is not None:
-        cp.valid = (~flagged).to(torch.uint8)
-    succ = compact(cp, plan.store)
-    filled = 0 if bad is None else fill_csr_device(plan, succ, bad)
+    first.  Only a flagged lane brings the diagnostics to the host.
+
+    The call is the span ``wg.decode_to_csr``, with children ``wg.resolve``
+    (an unresolved cold plan), ``wg.csr.index`` (the first call),
+    ``wg.b1`` (B1's launch), ``wg.csr.flags`` (the flag check and its
+    sync), ``wg.b2`` (B2 and its output) and ``wg.csr.fill`` (flagged
+    lanes only)."""
+    with span("decode_to_csr"):
+        if plan.cold and not plan.resolved:
+            with span("resolve"):
+                resolve_halos(plan)
+        if plan.compact_plan is None:
+            with span("csr.index"):
+                plan_csr_index(plan)
+        with span("b1"):
+            diag = decode_chunked(plan)
+        with span("csr.flags"):
+            flagged = lanes_flagged(plan, diag)
+            bad = flagged.cpu().numpy() if bool(flagged.any()) else None
+            cp = plan.compact_plan
+            if bad is not None:
+                cp.valid = (~flagged).to(torch.uint8)
+        with span("b2"):
+            succ = compact(cp, plan.store)
+        filled = 0
+        if bad is not None:
+            with span("csr.fill"):
+                filled = fill_csr_device(plan, succ, bad)
     return plan.csr_off, succ, filled

@@ -26,6 +26,7 @@ import torch
 
 from .. import native as _native
 
+from ..utils.trace import span
 from .bitstream import stream_words
 from .kdecode import (M_BASE, M_BIT, M_NODES, M_SEG, M_WCUR0, M_WIN, M_X,
                       KernelSpec, LanePlan, nmeta)
@@ -110,10 +111,6 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
     n = len(offsets) - 1
     if node_base + n >= (1 << 31):
         return None   # successor values must fit the int32 store
-    cum = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(outd, out=cum[1:])
-    arc_base = int(cum[first_node])
-    m = int(cum[n]) - arc_base
     W = settings.window_size
     CYC = W + 1
     cold = halo_csr is None
@@ -121,113 +118,130 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
         raise ValueError("sliced plans (node_base != 0) need halo_csr")
     refs = None
     if W > 0:
-        refs = _native.bv_scan_refs(data, offsets, settings).astype(np.int64)
+        with span("plan.scan_refs"):
+            refs = _native.bv_scan_refs(data, offsets,
+                                        settings).astype(np.int64)
 
-    L = max(1024, min(MAX_LANES, 1 << int(np.ceil(np.log2(
-        max(m, 1) / target_arcs_per_lane + 1)))))
-    cumc = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(outd + STATE_COST, out=cumc[1:])
-    c0 = int(cumc[first_node])
-    mc = int(cumc[n]) - c0
-    bounds = np.empty(L + 1, dtype=np.int64)
-    bounds[0] = first_node
-    bounds[1:L] = np.searchsorted(
-        cumc, c0 + (mc * np.arange(1, L, dtype=np.int64)) // L, side="left")
-    bounds[L] = n
-    bounds = np.maximum.accumulate(bounds)
-    starts, ends = bounds[:-1], bounds[1:]
-    active = starts != ends
+    with span("plan.chunks"):
+        cum = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(outd, out=cum[1:])
+        arc_base = int(cum[first_node])
+        m = int(cum[n]) - arc_base
+        L = max(1024, min(MAX_LANES, 1 << int(np.ceil(np.log2(
+            max(m, 1) / target_arcs_per_lane + 1)))))
+        cumc = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(outd + STATE_COST, out=cumc[1:])
+        c0 = int(cumc[first_node])
+        mc = int(cumc[n]) - c0
+        bounds = np.empty(L + 1, dtype=np.int64)
+        bounds[0] = first_node
+        bounds[1:L] = np.searchsorted(
+            cumc, c0 + (mc * np.arange(1, L, dtype=np.int64)) // L,
+            side="left")
+        bounds[L] = n
+        bounds = np.maximum.accumulate(bounds)
+        starts, ends = bounds[:-1], bounds[1:]
+        active = starts != ends
 
     # halo lists: predecessors the chunk references across its boundary,
     # packed in ascending node order at the head of the segment
-    needed = _needed_preds(starts, ends, refs, W, n)
-    lanes_i = np.arange(L, dtype=np.int64)
-    jj = np.arange(max(W, 1), dtype=np.int64)[None, :]
-    ys = starts[:, None] - 1 - jj
-    in_rng = active[:, None] & (ys >= 0)
-    ysc = np.clip(ys, 0, max(n - 1, 0))
-    pk = needed & in_rng
-    dy = np.where(pk, outd[ysc], 0)
-    # h[i, j]: rows taken by the lists of predecessors older than j's
-    h = np.cumsum(dy[:, ::-1], axis=1)[:, ::-1] - dy
-    halo = dy.sum(axis=1)
-    arcs = cum[ends] - cum[starts]
-    seg = np.where(active, halo + arcs, 0)
-    store_off = np.zeros(L + 1, dtype=np.int64)
-    np.cumsum(seg, out=store_off[1:])
+    with span("plan.needed_preds"):
+        needed = _needed_preds(starts, ends, refs, W, n)
+    with span("plan.lanes"):
+        lanes_i = np.arange(L, dtype=np.int64)
+        jj = np.arange(max(W, 1), dtype=np.int64)[None, :]
+        ys = starts[:, None] - 1 - jj
+        in_rng = active[:, None] & (ys >= 0)
+        ysc = np.clip(ys, 0, max(n - 1, 0))
+        pk = needed & in_rng
+        dy = np.where(pk, outd[ysc], 0)
+        # h[i, j]: rows taken by the lists of predecessors older than j's
+        h = np.cumsum(dy[:, ::-1], axis=1)[:, ::-1] - dy
+        halo = dy.sum(axis=1)
+        arcs = cum[ends] - cum[starts]
+        seg = np.where(active, halo + arcs, 0)
+        store_off = np.zeros(L + 1, dtype=np.int64)
+        np.cumsum(seg, out=store_off[1:])
 
-    meta = np.zeros((L, nmeta(W)), dtype=np.int64)
-    meta[:, M_NODES] = ends - starts
-    meta[:, M_BIT] = offsets[starts]
-    meta[:, M_X] = starts + node_base
-    meta[:, M_WCUR0] = halo
-    meta[:, M_BASE] = store_off[:-1]
-    meta[:, M_SEG] = seg
-    if W > 0:
-        # window slots keyed by GLOBAL node id, as the kernel's (x - ref)
-        # % (W+1): slice-local keying desyncs when node_base % (W+1) != 0
-        slot = (ysc + node_base) % CYC
-        for j in range(W):
-            v = in_rng[:, j]
-            meta[lanes_i[v], M_WIN + slot[v, j]] = outd[ysc[v, j]]
-            p = pk[:, j]
-            meta[lanes_i[p], M_WIN + CYC + slot[p, j]] = h[p, j]
+        meta = np.zeros((L, nmeta(W)), dtype=np.int64)
+        meta[:, M_NODES] = ends - starts
+        meta[:, M_BIT] = offsets[starts]
+        meta[:, M_X] = starts + node_base
+        meta[:, M_WCUR0] = halo
+        meta[:, M_BASE] = store_off[:-1]
+        meta[:, M_SEG] = seg
+        if W > 0:
+            # window slots keyed by GLOBAL node id, as the kernel's (x - ref)
+            # % (W+1): slice-local keying desyncs when node_base % (W+1) != 0
+            slot = (ysc + node_base) % CYC
+            for j in range(W):
+                v = in_rng[:, j]
+                meta[lanes_i[v], M_WIN + slot[v, j]] = outd[ysc[v, j]]
+                p = pk[:, j]
+                meta[lanes_i[p], M_WIN + CYC + slot[p, j]] = h[p, j]
 
-    # per-list halo (destination, length, predecessor)
-    dst0 = (store_off[:-1, None] + h)[pk]
-    cnt = dy[pk]
-    ys_sel = ysc[pk]
-    store = torch.zeros(int(store_off[-1]), dtype=torch.int32, device=device)
-    wf = {}
-    if not cold:
-        if len(cnt):
-            hco, hsu = halo_csr
-            within = _within(cnt)
-            hdst = np.repeat(dst0, cnt) + within
-            hval = np.asarray(hsu)[np.repeat(np.asarray(hco)[ys_sel], cnt)
-                                   + within]
-            store[torch.from_numpy(hdst).to(device)] = torch.from_numpy(
-                hval.astype(np.int32)).to(device)
-    elif len(cnt):
-        # each halo list's values live in the store itself, in the
-        # predecessor's own chunk: recorded as a (dst, src, cnt) triple and
-        # copied by resolve_halos once the source is right
-        c_y = np.searchsorted(bounds, ys_sel, side="right") - 1
-        # a predecessor before the first decoded node (shard plans with
-        # first_node > 0) or in an empty lane has no device source: its
-        # list is decoded on the host here and written in place
-        on_dev = (ys_sel >= bounds[0]) & active[np.maximum(c_y, 0)]
-        if not on_dev.all():
-            off = ~on_dev
-            c_off = cnt[off]
-            hval = _pred_values(data, settings, offsets, outd, node_base,
-                                ys_sel[off], c_off)
-            hdst = np.repeat(dst0[off], c_off) + _within(c_off)
-            store[torch.from_numpy(hdst).to(device)] = torch.from_numpy(
-                hval.astype(np.int32)).to(device)
-            dst0, cnt, ys_sel, c_y = (a[on_dev] for a in (dst0, cnt, ys_sel,
-                                                         c_y))
-        src0 = store_off[c_y] + halo[c_y] + (cum[ys_sel] - cum[starts[c_y]])
-        D, d_first = chain_depths(refs, bounds, settings.max_ref_count)
-        wf = dict(wf_dst0=dst0, wf_src0=src0, wf_nodes=ys_sel, wf_cnt=cnt,
-                  wf_chunk=c_y,
-                  wf_depth=D[np.clip(ys_sel - d_first, 0,
-                                     max(len(D) - 1, 0))].astype(np.int64))
+        # per-list halo (destination, length, predecessor)
+        dst0 = (store_off[:-1, None] + h)[pk]
+        cnt = dy[pk]
+        ys_sel = ysc[pk]
+        store = torch.zeros(int(store_off[-1]), dtype=torch.int32,
+                            device=device)
+        wf, src0 = {}, None
+        if not cold:
+            if len(cnt):
+                hco, hsu = halo_csr
+                within = _within(cnt)
+                hdst = np.repeat(dst0, cnt) + within
+                hval = np.asarray(hsu)[np.repeat(np.asarray(hco)[ys_sel],
+                                                 cnt) + within]
+                store[torch.from_numpy(hdst).to(device)] = torch.from_numpy(
+                    hval.astype(np.int32)).to(device)
+        elif len(cnt):
+            # each halo list's values live in the store itself, in the
+            # predecessor's own chunk: recorded as a (dst, src, cnt) triple
+            # and copied by resolve_halos once the source is right
+            c_y = np.searchsorted(bounds, ys_sel, side="right") - 1
+            # a predecessor before the first decoded node (shard plans with
+            # first_node > 0) or in an empty lane has no device source: its
+            # list is decoded on the host here and written in place
+            on_dev = (ys_sel >= bounds[0]) & active[np.maximum(c_y, 0)]
+            if not on_dev.all():
+                off = ~on_dev
+                c_off = cnt[off]
+                hval = _pred_values(data, settings, offsets, outd, node_base,
+                                    ys_sel[off], c_off)
+                hdst = np.repeat(dst0[off], c_off) + _within(c_off)
+                store[torch.from_numpy(hdst).to(device)] = torch.from_numpy(
+                    hval.astype(np.int32)).to(device)
+                dst0, cnt, ys_sel, c_y = (a[on_dev] for a in (dst0, cnt,
+                                                             ys_sel, c_y))
+            src0 = (store_off[c_y] + halo[c_y]
+                    + (cum[ys_sel] - cum[starts[c_y]]))
 
-    # threads take the costliest lanes first: long lanes start in the
-    # first wave, and a warp's 32 lanes cost about the same
-    cost = (ends - starts) * STATE_COST + arcs
-    order = np.argsort(-cost, kind="stable").astype(np.int32)
-    return LanePlan(
-        spec=spec, device=torch.device(device),
-        words=stream_words(data, device),
-        meta=torch.from_numpy(meta).to(device), store=store,
-        n=n, m=m, chunk_starts=bounds, halo_arcs=halo,
-        store_off=store_off, cum_arcs=cum, outdegrees=outd, offsets=offsets,
-        exp_arcs=seg, exp_nodes=ends - starts,
-        expect=torch.from_numpy(np.stack([seg, ends - starts], axis=1)
-                                .astype(np.int32)).to(device),
-        order=torch.from_numpy(order).to(device),
-        data=np.asarray(data, dtype=np.uint8), settings=settings,
-        node_base=node_base, arc_base=arc_base, cold=cold,
-        resolved=not (cold and len(cnt) > 0), **wf)
+        # threads take the costliest lanes first: long lanes start in the
+        # first wave, and a warp's 32 lanes cost about the same
+        cost = (ends - starts) * STATE_COST + arcs
+        order = np.argsort(-cost, kind="stable").astype(np.int32)
+
+    if src0 is not None:    # the cold plan's halo triples
+        with span("plan.chain_depths"):
+            D, d_first = chain_depths(refs, bounds, settings.max_ref_count)
+            wf = dict(wf_dst0=dst0, wf_src0=src0, wf_nodes=ys_sel,
+                      wf_cnt=cnt, wf_chunk=c_y,
+                      wf_depth=D[np.clip(ys_sel - d_first, 0, max(
+                          len(D) - 1, 0))].astype(np.int64))
+
+    with span("plan.upload"):
+        return LanePlan(
+            spec=spec, device=torch.device(device),
+            words=stream_words(data, device),
+            meta=torch.from_numpy(meta).to(device), store=store,
+            n=n, m=m, chunk_starts=bounds, halo_arcs=halo,
+            store_off=store_off, cum_arcs=cum, outdegrees=outd,
+            offsets=offsets, exp_arcs=seg, exp_nodes=ends - starts,
+            expect=torch.from_numpy(np.stack([seg, ends - starts], axis=1)
+                                    .astype(np.int32)).to(device),
+            order=torch.from_numpy(order).to(device),
+            data=np.asarray(data, dtype=np.uint8), settings=settings,
+            node_base=node_base, arc_base=arc_base, cold=cold,
+            resolved=not (cold and len(cnt) > 0), **wf)
