@@ -8,9 +8,9 @@ line and the sliced decode run on it, its shards encoded and decoded by
 rank processes and over listed devices, then the analytics over it
 (HyperBall to convergence, BFS, connected and strongly connected
 components, geometric centrality, statistics) -- at uk-2002
-scale (18.5M nodes, ~355M arcs of a synthetic web graph), after holding
-both hand-written CUDA kernels against their plain PyTorch versions on the
-card; and the probe path -- every probe of the JAX package's
+scale (18.5M nodes, ~355M arcs of a synthetic web graph), holding the
+main path's hand-written CUDA kernels (B1, B2 and HyperBall's merge)
+against their plain PyTorch versions on the card; and the probe path -- every probe of the JAX package's
 ``experiments/`` ported to a CUDA kernel in
 ``webgraph_tpu_torch/experiments/`` -- at the probes' own shapes.
 
@@ -18,7 +18,7 @@ Phases, each printing one line:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: nvcc builds the kernels (with ptxas's registers, stack and
-   spills of the two main-path kernels), g++ the port's host library;
+   spills of the main-path kernels), g++ the port's host library;
 3. kernels: the decode kernel (B1) against ``decode_lanes_plain`` under
    four stream formats and one garbled stream, the compaction kernel (B2)
    against ``compact_plain`` on random run tables with invalid runs and on
@@ -38,8 +38,14 @@ Phases, each printing one line:
    its slowest lane launched alone; a ``torch.profiler`` window over one
    ``decode_to_csr``; B2's library yardstick (``torch.index_select`` over
    a prebuilt index) and a device-to-device ``copy_`` of the same m int32
-   (``copy_ms``); both kernels against their plain versions at the shapes
-   the slice gave them; and the CSR bit-exact against the native
+   (``copy_ms``); B1 and B2 against their plain versions at the shapes
+   the slice gave them; HyperBall's merge (``merge_rows``, one launch of
+   ``csrc/hyperball.cu``) held whole against ``merge_rows_plain``: the
+   main path's round, then at log2m 6 a dense round and a sparse list (one
+   node in ten and the longest list) with int32 and int64 ids, each timed
+   beside its plain twin, and the library path the round ran before the
+   kernel (a gather and ``scatter_reduce_`` over a prebuilt source index)
+   timed and held equal; and the CSR bit-exact against the native
    sequential decoder;
 6. bench: the port's benchmark entry, ``python -m webgraph_tpu_torch.bench``,
    in a process of its own, twice.  First on a stand-in for cnr-2000 (a
@@ -108,7 +114,8 @@ Phases, each printing one line:
    --start 0``, ``scc``, ``stats`` and ``hyperball --log2m 6`` in this
    process, launch counts reset around each (B1 and B2 must be launched),
    each output held equal to the same analytic on the slice's in-memory
-   CSR and timed from the call to its return; ``decode_big_slices`` in
+   CSR and timed from the call to its return (``hyperball`` launches
+   ``hyperball_merge`` once a round or less, at least once); ``decode_big_slices`` in
    slices of 2^27 arcs, launch counts reset before each slice, every slice
    equal to the one-plan CSR, its host halo decode and plans timed apart;
    then the text formats at ``OFFLINE_NODES``: ``ascii --to-ascii`` and
@@ -147,7 +154,9 @@ Phases, each printing one line:
    seeded sources on the packed path, 4 of them against sums over
    certified BFS distances; and the dense, systolic/local and external
    HyperBall modes on the 20,000-node check graph, register- and
-   NF-equal.  The analytics launch no hand-written kernel (torch ops
+   NF-equal.  Every HyperBall round launches ``hyperball_merge`` once (a
+   sparse round with no node listed none), which the line records per
+   round; the other analytics launch no hand-written kernel (torch ops
    only): the line reads the counts, reset just before;
 12. big: a graph past 2^31 arcs (2^27 nodes, about 2.28G arcs, a stream
    past 2^32 bits), generated on the card and encoded on every host
@@ -157,8 +166,9 @@ Phases, each printing one line:
    to the generator on the kernel route -- then the whole basename through
    ``load_csr``, equal to the generator or raising before any launch.
 
-Then one JSON line of the kernels (both main-path kernels and the 23 probe
-sites, each with its launches, times, bound and library time), and last
+Then one JSON line of the kernels (the three main-path kernels and the 23
+probe sites, each with its launches, times, bound and library time; the
+merge's at log2m 6 and bound by each row read once), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without a CUDA device it fails before doing anything.
 
@@ -211,7 +221,12 @@ KERNELS = {
                             replaces="webgraph_tpu/ops/kdecode.py:1114"),
     "compact_runs": dict(source="webgraph_tpu_torch/csrc/compact.cu",
                          replaces="webgraph_tpu/ops/kcompact.py:125"),
+    "hyperball_merge": dict(source="webgraph_tpu_torch/csrc/hyperball.cu",
+                            replaces="none (webgraph_tpu/algo/hyperball.py:"
+                            "296, device_round, is an XLA program)"),
 }
+# the kernels every decode to a CSR launches (B1, B2)
+DECODE_KERNELS = ("bv_decode_lanes", "compact_runs")
 # the H100 SXM's published peaks (NVIDIA H100 datasheet): device memory
 # rate, and float32 outside the tensor cores, the rate at which the probes'
 # integer steps are counted
@@ -311,11 +326,14 @@ def bound(nbytes: float, ops: float = 0.0) -> tuple:
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest |a - b| over int64 copies of 2^26 elements at a time."""
     if a.shape != b.shape:
         raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
-    if a.numel() == 0:
-        return 0
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    a, b = a.reshape(-1), b.reshape(-1)
+    step = 1 << 26
+    return max((int((a[i:i + step].to(torch.int64)
+                     - b[i:i + step].to(torch.int64)).abs().max())
+                for i in range(0, a.numel(), step)), default=0)
 
 
 class Errors:
@@ -347,7 +365,7 @@ def phase_device() -> tuple:
 
 
 def phase_build() -> dict:
-    """Build both libraries; returns ptxas's report of the two main-path
+    """Build both libraries; returns ptxas's report of the main-path
     kernels (registers, stack frame, spills)."""
     t0 = time.perf_counter()
     _build.lib()
@@ -537,6 +555,93 @@ def synth_input(n_nodes: int):
     return data, offsets, n, m, settings, src, time.perf_counter() - t0
 
 
+def merge_bytes(arcs: int, k: int, rows: int, row: int, id_bytes: int,
+                off_bytes: int) -> dict:
+    """Bytes of a HyperBall merge of k listed nodes over ``arcs`` arcs that
+    touches ``rows`` distinct register rows of ``row`` bytes, counted two
+    ways: every gathered row read from device memory, or each row once
+    (with the rows out, the changed flags, the ids and the offsets)."""
+    fixed = k * (row + 1) + off_bytes + arcs * id_bytes
+    return dict(gathered=fixed + (arcs + k) * row, once=fixed + rows * row)
+
+
+def _merge_vs_plain(g, regs, errors: Errors, what: str, nodes=None,
+                    succ=None) -> dict:
+    """``merge_rows`` held whole against ``merge_rows_plain`` on one input
+    (every row and every changed flag), both timed by CUDA events, with
+    the bytes that bound the kernel (``merge_bytes``)."""
+    off, dev = g.offsets, regs.device
+    succ = g.succ if succ is None else succ
+    got, got_ch = HB.merge_rows(off, succ, regs, nodes)
+    exp, exp_ch = HB.merge_rows_plain(off, succ, regs, nodes)
+    errors.check("hyperball_merge", f"{what} rows", got, exp)
+    errors.check("hyperball_merge", f"{what} changed", got_ch, exp_ch)
+    changed = int(got_ch.sum())
+    del got, got_ch, exp, exp_ch
+    ms = min(cuda_ms(lambda: HB.merge_rows(off, succ, regs, nodes), reps=5,
+                     warmup=1) for _ in range(3))
+    plain_ms = cuda_ms(lambda: HB.merge_rows_plain(off, succ, regs, nodes),
+                       warmup=1)
+    n, row = regs.shape
+    if nodes is None:
+        k, arcs, rows, off_bytes = n, succ.numel(), n, (n + 1) * 8
+        longest = int((off[1:] - off[:-1]).max())
+    else:
+        lo = off[nodes]
+        cnt = off[nodes + 1] - lo
+        k, arcs, longest = nodes.numel(), int(cnt.sum()), int(cnt.max())
+        seen = torch.zeros(n, dtype=torch.bool, device=dev)
+        seen[succ[expand_ranges(lo, cnt, dev)].to(torch.int64)] = True
+        seen[nodes] = True
+        rows, off_bytes = int(seen.sum()), k * 24
+        del lo, cnt, seen
+    nb = merge_bytes(arcs, k, rows, row, succ.element_size(), off_bytes)
+    return dict(nodes=k, arcs=arcs, longest_list=longest, rows=rows,
+                log2m=row.bit_length() - 1, id_bytes=succ.element_size(),
+                changed=changed, ms=ms, plain_ms=plain_ms, bytes=nb,
+                bound_ms={a: bound(b)[0] for a, b in nb.items()})
+
+
+def _slice_merge(g, regs0, regs1, errors: Errors) -> dict:
+    """HyperBall's merge at the slice's shape: the main path's round
+    (``regs1``, log2m ``LOG2M``) and dense and sparse merges at log2m
+    ``HB_LOG2M``, the sparse list one node in ten and the longest list,
+    with int32 and int64 ids, each held whole against the plain twin; the
+    library path (the gather and ``scatter_reduce_`` the round ran before
+    the kernel, over a source index built once) timed and held equal."""
+    dev = regs0.device
+    n = regs0.shape[0]
+    want, _ = HB.merge_rows_plain(g.offsets, g.succ, regs0)
+    errors.check("hyperball_merge", "the main path's round", regs1, want)
+    del want
+    regs = HB.hyperloglog_init_device(n, HB_LOG2M, 1, dev)
+    out = dict(dense=_merge_vs_plain(g, regs, errors, "dense"))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pick = torch.rand(n, device=dev, generator=gen) < 0.1
+    pick[torch.argmax(g.offsets[1:] - g.offsets[:-1])] = True
+    nodes = torch.nonzero(pick).squeeze(1)
+    del pick
+    out["sparse"] = _merge_vs_plain(g, regs, errors, "sparse", nodes)
+    succ64 = g.succ.to(torch.int64)
+    out["sparse_int64_ids"] = _merge_vs_plain(g, regs, errors,
+                                              "sparse, int64 ids", nodes,
+                                              succ64)
+    del succ64, nodes
+    src = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=dev),
+        g.offsets[1:] - g.offsets[:-1], output_size=g.num_arcs)
+
+    def library():
+        return HB._scatter_max_rows(regs.clone(), src, regs, g.succ)
+
+    if not torch.equal(library(), HB.merge_rows(g.offsets, g.succ, regs)[0]):
+        raise AssertionError("the library path differs from hyperball_merge")
+    out["library_ms"] = min(cuda_ms(library) for _ in range(2))
+    del src, regs
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
     """The main path at ``n_nodes``.  Returns (the device CSR graph and the
     native decode's host CSR, for the analytics; the slice's numbers)."""
@@ -563,13 +668,15 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
     first_csr_s = time.perf_counter() - t0
     g = CSRGraph.from_decoded(co, succ)
     regs0 = torch.from_numpy(HB.hyperloglog_init(n, LOG2M, seed=1)).to(dev)
-    regs1 = HB.device_round(g.offsets, g.succ, regs0, src=g.arc_sources())
+    regs1 = HB.device_round(g.offsets, g.succ, regs0)
     torch.cuda.synchronize()
     launches = {k: _build.LAUNCHES[k] for k in KERNELS}
     peak_main = torch.cuda.max_memory_allocated()
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"the main path never launched {k}")
+    if _build.LAUNCHES["hyperball_merge"] != 1:
+        raise AssertionError("the HyperBall round did not launch its merge")
 
     # ---- timings (steady state: a resolved plan) ----
     decode_ms = min(cuda_ms(lambda: kdecode.decode_chunked(plan))
@@ -586,7 +693,7 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
     hb_times = []
     for _ in range(2):
         t0 = time.perf_counter()
-        r = HB.device_round(g.offsets, g.succ, regs0, src=g.arc_sources())
+        r = HB.device_round(g.offsets, g.succ, regs0)
         torch.cuda.synchronize()
         hb_times.append(time.perf_counter() - t0)
         del r
@@ -631,7 +738,7 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
     copy_ms = min(cuda_ms(lambda: dst.copy_(csr_k)) for _ in range(3))
     del dst, csr_k
 
-    # ---- both kernels against their plain versions, slice shapes ----
+    # ---- B1 and B2 against their plain versions, slice shapes ----
     _, decode_plain_ms, diag = _decode_vs_plain(plan, errors, "slice")
     got = kcompact.compact(plan.compact_plan, plan.store)
     t0 = time.perf_counter()
@@ -640,6 +747,7 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
     compact_plain_ms = (time.perf_counter() - t0) * 1e3
     errors.check("compact_runs", "slice", got, exp)
     del got, exp
+    merge = _slice_merge(g, regs0, regs1, errors)
 
     # ---- correctness against the native sequential decoder ----
     t0 = time.perf_counter()
@@ -689,9 +797,12 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
         peak_bytes=torch.cuda.max_memory_allocated(),
         launches=launches, decode_plain_ms=decode_plain_ms,
         compact_plain_ms=compact_plain_ms, b1=b1, profile=profile,
+        hyperball_merge=merge,
         bounds={"bv_decode_lanes": bound(b1_bytes),
-                "compact_runs": bound(b2_bytes)},
-        library_ms={"bv_decode_lanes": None, "compact_runs": library_ms},
+                "compact_runs": bound(b2_bytes),
+                "hyperball_merge": bound(merge["dense"]["bytes"]["once"])},
+        library_ms={"bv_decode_lanes": None, "compact_runs": library_ms,
+                    "hyperball_merge": merge["library_ms"]},
         bit_exact=True)
 
 
@@ -769,7 +880,7 @@ def _run_bench(basename: str, synth_nodes: int, extra: str) -> dict:
         if row.get("fallback_arc_frac", 0) != 0:
             bad.append("fallback_arc_frac")
         if "spec" in row:
-            bad += [k for k in KERNELS if row["launches"][k] <= 0]
+            bad += [k for k in DECODE_KERNELS if row["launches"][k] <= 0]
         if bad:
             raise AssertionError(f"bench row {key}: {bad}: {row}")
     return dict(headline=head, rows=rows, wall_s=wall)
@@ -901,8 +1012,8 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
         rep = g.report
         if rep["route"] != "kernel":
             raise AssertionError(f"load_csr took the {rep['route']} route")
-        for k, v in launches.items():
-            if v <= 0:
+        for k in DECODE_KERNELS:
+            if launches[k] <= 0:
                 raise AssertionError(f"load_csr never launched {k}")
         if not (g.device == dev and torch.equal(g.offsets, graph.offsets)
                 and torch.equal(g.succ, graph.succ)):
@@ -1021,8 +1132,8 @@ def _read_back(base: str, want, what: str) -> dict:
     if g.report["route"] != "kernel":
         raise AssertionError(f"{what}: load_csr took the "
                              f"{g.report['route']} route")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in DECODE_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"{what}: load_csr never launched {k}")
     _same_csr(g, want, what)
     return dict(load_csr_s=secs, launches=launches)
@@ -1284,8 +1395,8 @@ def _store_and_load_labels(name: str, graph, proto, vals, tmp: str,
     if back.report["graph"]["route"] != "kernel":
         raise AssertionError(f"labels {name}: to_device took the "
                              f"{back.report['graph']['route']} route")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in DECODE_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"labels {name}: to_device never launched "
                                  f"{k}")
     _same_csr(back.graph, graph, f"labels {name}")
@@ -1933,8 +2044,8 @@ def _cli(argv: list) -> tuple:
 
 
 def _decoded(launches: dict, what: str) -> None:
-    for k, v in launches.items():
-        if v <= 0:
+    for k in DECODE_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"{what} never launched {k}")
 
 
@@ -2016,6 +2127,10 @@ def phase_cli(dev, card: str, graph, hco, hsu) -> dict:
         text, secs, la = _cli(["hyperball", bv, "--log2m", str(HB_LOG2M)])
         _decoded(la, "hyperball")
         nf = A.HyperBall(graph, log2m=HB_LOG2M).run()
+        if not 1 <= la["hyperball_merge"] <= len(nf) - 1:
+            raise AssertionError(f"cli hyperball launched hyperball_merge "
+                                 f"{la['hyperball_merge']} times in "
+                                 f"{len(nf) - 1} rounds")
         got = [float(r.split("\t")[1]) for r in text.splitlines()]
         if len(got) != len(nf) or not np.allclose(got, nf, rtol=1e-12,
                                                   atol=0):
@@ -2529,11 +2644,12 @@ def phase_analytics(dev, graph, hco, hsu) -> dict:
     need_t, xs_t = (torch.from_numpy(a).to(dev) for a in (need, xs))
     at_x = np.searchsorted(need, xs)
     at_succ = [np.searchsorted(need, ys) for ys in lists]
-    round_s, round_profile = [], None
+    round_s, round_profile, merges = [], None, []
     torch.cuda.reset_peak_memory_stats()
     while True:
         prev = hb.regs[need_t].cpu().numpy()
         torch.cuda.synchronize()
+        before = _build.LAUNCHES["hyperball_merge"]
         t0 = time.perf_counter()
         if hb.iteration == 1:   # round 2, dense, under the profiler
             round_profile = profile_window(hb.iterate)
@@ -2541,6 +2657,12 @@ def phase_analytics(dev, graph, hco, hsu) -> dict:
             hb.iterate()
         torch.cuda.synchronize()
         round_s.append(time.perf_counter() - t0)
+        # one merge launch a round, bar a sparse round with no node listed
+        merges.append(_build.LAUNCHES["hyperball_merge"] - before)
+        if merges[-1] != 1 and (merges[-1] > 1 or hb.arcs_touched[-1]
+                                or hb.mode_history[-1] == "dense"):
+            raise AssertionError(f"HyperBall round {hb.iteration} launched "
+                                 f"hyperball_merge {merges[-1]} times")
         cur = hb.regs[xs_t].cpu().numpy()
         for i, x in enumerate(xs):
             w = prev[at_x[i]]
@@ -2561,7 +2683,7 @@ def phase_analytics(dev, graph, hco, hsu) -> dict:
         seconds=sum(round_s), peak_bytes=torch.cuda.max_memory_allocated(),
         log2m=HB_LOG2M, rounds=hb.iteration, round_s=round_s,
         mode_history=hb.mode_history, arcs_touched=hb.arcs_touched,
-        nf=nf, effective_diameter=A.effective_diameter(nf, 0.9),
+        merge_launches=merges, nf=nf, effective_diameter=A.effective_diameter(nf, 0.9),
         sampled_nodes=SAMPLE, round2_profile=round_profile)
     del hb, sums, prev, cur
 
@@ -2930,7 +3052,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("big", phase_big(dev, card))
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),
-             "compact_runs": (res["compact_ms"], res["compact_plain_ms"])}
+             "compact_runs": (res["compact_ms"], res["compact_plain_ms"]),
+             "hyperball_merge": (res["hyperball_merge"]["dense"]["ms"],
+                                 res["hyperball_merge"]["dense"]["plain_ms"])}
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"], launches=res["launches"][k],
                     max_abs_err=errors.err[k], ms=times[k][0],

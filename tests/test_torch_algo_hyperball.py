@@ -227,15 +227,18 @@ def test_external_in_memory_and_memmap(tmp_path):
 
 
 def test_device_round_with_a_source_index_built_once():
+    """``device_round`` (host or device offsets) equals the scatter-max
+    over the graph's source index, built once and kept."""
     g = erdos_renyi(150, 0.06, seed=2)
     pg = port(g)
     regs = torch.from_numpy(PHB.hyperloglog_init(150, 4, seed=3))
-    want = PHB.device_round(g.offsets, pg.succ, regs)
-    got = PHB.device_round(None, pg.succ, regs, src=pg.arc_sources())
-    assert torch.equal(got, want)
+    want = PHB._scatter_max_rows(regs.clone(), pg.arc_sources(), regs,
+                                 pg.succ)
+    assert torch.equal(PHB.device_round(g.offsets, pg.succ, regs), want)
+    assert torch.equal(PHB.device_round(pg.offsets, pg.succ, regs), want)
     assert pg.arc_sources() is pg.arc_sources()
     with pytest.raises(ValueError):
-        PHB.device_round(None, pg.succ, regs, src=pg.arc_sources()[1:])
+        PHB.device_round(pg.offsets[1:], pg.succ, regs)
 
 
 @pytest.mark.parametrize("n,log2m,seed", [(1000, 4, 0), (777, 6, 1),

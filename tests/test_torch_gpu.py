@@ -28,6 +28,7 @@ from webgraph_tpu_torch.settings import CompressionFlags as C
 from webgraph_tpu_torch.utils.synth import synthesize_webgraph
 
 from . import torch_edge_cases as E
+from . import torch_hyperball_cases as H
 from .torch_compact_layouts import LAYOUTS as COMPACT_LAYOUTS
 from .torch_compact_layouts import build_layout
 
@@ -332,6 +333,127 @@ def test_hyperball_on_card_matches_cpu(cuda, mode, tmp_path):
            k.reachable_counts()])
     if mode == "sparse":
         assert "systolic" in k.mode_history or "local" in k.mode_history
+
+
+# -- HyperBall's merge kernel against its plain twin ------------------------
+
+# every row width the grouping adapts to: one byte, two, a word, under a
+# 16-byte vector, one vector, a warp of vectors, chunks of a warp
+MERGE_LOG2MS = sorted(set(H.LOG2MS) | {0, 1, 3, 5, 10})
+
+
+def _merge_on_card(cuda, co, su, regs, nodes=None, succ_dtype=torch.int32):
+    """merge_rows on the card (one launch) and merge_rows_plain on the CPU,
+    both on the host: ((rows, changed), (rows, changed))."""
+    off, succ = torch.from_numpy(co), torch.from_numpy(su).to(succ_dtype)
+    nd = None if nodes is None else torch.from_numpy(nodes)
+    before = _build.LAUNCHES["hyperball_merge"]
+    got = PHB.merge_rows(off.to(cuda), succ.to(cuda), regs.to(cuda),
+                         None if nd is None else nd.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["hyperball_merge"] == before + 1
+    return ([t.cpu() for t in got],
+            PHB.merge_rows_plain(off, succ, regs.cpu(), nd))
+
+
+@pytest.mark.parametrize("log2m", MERGE_LOG2MS)
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("succ_dtype", [torch.int32, torch.int64])
+def test_hyperball_merge_kernel_matches_plain(cuda, log2m, sparse,
+                                              succ_dtype):
+    co, su = H.crawl()
+    n = len(co) - 1
+    regs = torch.from_numpy(H.registers(n, log2m, seed=log2m))
+    nodes = H.node_list(n, seed=log2m) if sparse else None
+    (out, ch), (exp, exp_ch) = _merge_on_card(cuda, co, su, regs, nodes,
+                                              succ_dtype)
+    assert torch.equal(out, exp) and torch.equal(ch, exp_ch)
+    assert ch.any() and not ch.all()
+
+
+@pytest.mark.parametrize("shift", [1, 2, 4, 8])
+def test_hyperball_merge_kernel_rows_off_16_bytes(cuda, shift):
+    """Register rows that start off a 16-byte boundary take narrower
+    vectors; the result is the same."""
+    co, su = H.crawl()
+    n = len(co) - 1
+    regs = torch.from_numpy(H.registers(n, 6))
+    buf = torch.empty(regs.numel() + 16, dtype=torch.uint8, device=cuda)
+    view = buf[shift:shift + regs.numel()].view(n, 64)
+    view.copy_(regs)
+    assert view.data_ptr() % 16 == shift % 16
+    out, ch = PHB.merge_rows(torch.from_numpy(co).to(cuda),
+                             torch.from_numpy(su).to(cuda, torch.int32), view)
+    exp, exp_ch = PHB.merge_rows_plain(torch.from_numpy(co),
+                                       torch.from_numpy(su), regs)
+    assert torch.equal(out.cpu(), exp) and torch.equal(ch.cpu(), exp_ch)
+
+
+def test_hyperball_merge_empty_list_launches_nothing(cuda):
+    co, su = H.crawl(200)
+    regs = torch.from_numpy(H.registers(200, 6)).to(cuda)
+    before = _build.LAUNCHES["hyperball_merge"]
+    out, ch = PHB.merge_rows(torch.from_numpy(co).to(cuda),
+                             torch.from_numpy(su).to(cuda, torch.int32), regs,
+                             torch.zeros(0, dtype=torch.int64, device=cuda))
+    assert out.shape == (0, 64) and ch.shape == (0,)
+    assert _build.LAUNCHES["hyperball_merge"] == before
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_hyperball_rounds_launch_the_merge_once_each(cuda, monkeypatch,
+                                                     transpose):
+    """Each round with a node to merge is one launch, and a CUDA tensor
+    never reaches the plain twin."""
+    from webgraph_tpu_torch.core.graph import CSRGraph
+    co, su = H.crawl(1500, seed=4)
+    seq = PHB.sequential_hyperball(CSRGraph(co, su, device="cpu"), log2m=6,
+                                   seed=5)
+
+    def never(*args, **kw):
+        raise AssertionError("the plain twin ran on a CUDA tensor")
+
+    monkeypatch.setattr(PHB, "merge_rows_plain", never)
+    monkeypatch.setattr(PHB, "_scatter_max_rows", never)
+    lists, real = [], PHB.merge_rows
+
+    def listed(off, succ, regs, nodes=None):
+        lists.append(regs.shape[0] if nodes is None else nodes.numel())
+        return real(off, succ, regs, nodes)
+
+    monkeypatch.setattr(PHB, "merge_rows", listed)
+    g = CSRGraph(co, su, device=cuda)
+    hb = PHB.HyperBall(g, log2m=6, seed=5,
+                       gt=g.transpose() if transpose else None)
+    before = _build.LAUNCHES["hyperball_merge"]
+    hb.run()
+    torch.cuda.synchronize()
+    assert len(lists) == hb.iteration
+    assert (_build.LAUNCHES["hyperball_merge"] - before
+            == sum(k > 0 for k in lists) >= hb.iteration - 1)
+    if transpose:
+        assert {"systolic", "local"} & set(hb.mode_history)
+    np.testing.assert_array_equal(hb.regs.cpu().numpy(), seq)
+
+
+def test_hyperball_merge_on_a_crawl_of_uk2002_scale(cuda):
+    """The first two dense rounds of the 18.5M-node synthetic crawl (the
+    benchmark's uk2002 shape: mean outdegree 13.45, log2m 6)."""
+    from webgraph_tpu_torch.core.graph import CSRGraph
+    n = 18_520_486
+    co, su = synthesize_webgraph(n, mean_outdegree=13.45, seed=7)
+    g = CSRGraph(co, su, device=cuda)
+    del co, su
+    regs = PHB.hyperloglog_init_device(n, 6, 7, cuda)
+    for _ in range(2):
+        before = _build.LAUNCHES["hyperball_merge"]
+        out, ch = PHB.merge_rows(g.offsets, g.succ, regs)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["hyperball_merge"] == before + 1
+        exp, exp_ch = PHB.merge_rows_plain(g.offsets, g.succ, regs)
+        assert torch.equal(out, exp) and torch.equal(ch, exp_ch)
+        del exp, exp_ch
+        regs = out
 
 
 # -- the file entries on the card against the same entries on the CPU -------

@@ -9,11 +9,14 @@ the JAX module's (that module imports jax); ``hyperloglog_init`` and
 versions, which the class runs.
 
 A round is c'[x] = max(c[x], max over successors y of c[y]) on uint8
-registers (HyperBall.java:654-900): a gather of the successors' register
-rows and a scatter-max into their sources, in PyTorch ops (in the JAX
-package it is an XLA program, not a Pallas kernel).  The JAX package's
-packed-u32 ``DenseRoundPlan`` is a TPU layout and has no counterpart; its
-power-of-two padding exists for XLA's static shapes and has none either.
+registers (HyperBall.java:654-900).  ``merge_rows`` computes it for a list
+of nodes: on the card one launch of ``csrc/hyperball.cu``, a segmented
+byte-max over each node's successor rows; on the CPU its plain twin
+``merge_rows_plain``, a gather of the successors' rows and a scatter-max
+into their sources (in the JAX package the round is an XLA program of that
+gather and scatter, not a Pallas kernel).  The JAX package's packed-u32
+``DenseRoundPlan`` is a TPU layout and has no counterpart; its power-of-two
+padding exists for XLA's static shapes and has none either.
 
 The class keeps registers, counts, the modified mask and the distance sums
 on the graph's device; the must-check set of a systolic or local round, the
@@ -30,10 +33,12 @@ import torch
 
 from .. import state
 from ..core.graph import CSRGraph, expand_ranges
+from ..ops import _build
 from ..utils.trace import count, span
 
 __all__ = ["HyperBall", "hyperloglog_init", "hyperloglog_init_device",
-           "estimate_counts", "estimate_counts_device", "device_round",
+           "estimate_counts", "estimate_counts_device", "merge_rows",
+           "merge_rows_plain", "device_round",
            "sequential_hyperball", "effective_diameter"]
 
 _M64 = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -152,32 +157,75 @@ def _scatter_max_rows(out: torch.Tensor, dst: torch.Tensor,
     return out
 
 
-def device_round(csr_off, succ: torch.Tensor, regs: torch.Tensor,
-                 src: Optional[torch.Tensor] = None) -> torch.Tensor:
+def merge_rows(off: torch.Tensor, succ: torch.Tensor, regs: torch.Tensor,
+               nodes: Optional[torch.Tensor] = None) -> tuple:
+    """Merged registers of ``nodes`` and whether each changed: row i is the
+    bytewise max of ``regs[x_i]`` and the rows of x_i's successors, where
+    x_i = ``nodes[i]``, or i when ``nodes`` is None (every node: a dense
+    round).  Reads ``regs`` only.
+
+    ``off``: int64[n+1] offsets and ``succ``: int32/int64[m] successors of
+    the CSR, ``regs``: uint8 (n, 2^log2m), ``nodes``: int64[k], all
+    contiguous on one device.  Returns (uint8 (k, 2^log2m), bool[k]).  CUDA
+    tensors launch ``hyperball_merge`` (``csrc/hyperball.cu``); CPU tensors
+    run :func:`merge_rows_plain`."""
+    dev = regs.device
+    _build.check_tensor(regs, "regs", (None, None), dtype=torch.uint8)
+    n, R = regs.shape
+    if R & (R - 1):
+        raise ValueError("regs must have 2^log2m columns")
+    _build.check_tensor(off, "off", (n + 1,), dtype=torch.int64, device=dev)
+    if succ.dtype not in (torch.int32, torch.int64):
+        raise ValueError("succ must be int32 or int64")
+    _build.check_tensor(succ, "succ", (None,), dtype=succ.dtype, device=dev)
+    if nodes is not None:
+        _build.check_tensor(nodes, "nodes", (None,), dtype=torch.int64,
+                            device=dev)
+    if dev.type == "cpu":
+        return merge_rows_plain(off, succ, regs, nodes)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    k = n if nodes is None else nodes.numel()
+    out = torch.empty((k, R), dtype=torch.uint8, device=dev)
+    changed = torch.empty(k, dtype=torch.bool, device=dev)
+    if k == 0:
+        return out, changed
+    rc = _build.lib().wg_hyperball_merge(
+        off.data_ptr(), succ.data_ptr(), int(succ.dtype == torch.int64),
+        regs.data_ptr(), R, None if nodes is None else nodes.data_ptr(), k,
+        out.data_ptr(), changed.data_ptr(), _build.stream_ptr(regs))
+    _build.check(rc, "hyperball_merge")
+    _build.LAUNCHES["hyperball_merge"] += 1
+    return out, changed
+
+
+def merge_rows_plain(off: torch.Tensor, succ: torch.Tensor,
+                     regs: torch.Tensor,
+                     nodes: Optional[torch.Tensor] = None) -> tuple:
+    """The plain twin of :func:`merge_rows`: a gather of the successors'
+    rows and a scatter-max into their list's row (``_scatter_max_rows``)."""
+    dev = regs.device
+    if nodes is None:
+        old, cnt, tgt = regs, off[1:] - off[:-1], succ
+    else:
+        lo = off[nodes]
+        cnt = off[nodes + 1] - lo
+        old, tgt = regs[nodes], succ[expand_ranges(lo, cnt, dev)]
+    seg = torch.repeat_interleave(torch.arange(old.shape[0], device=dev),
+                                  cnt, output_size=tgt.numel())
+    new = _scatter_max_rows(old.clone(), seg, regs, tgt)
+    return new, (new != old).any(1)
+
+
+def device_round(csr_off, succ: torch.Tensor,
+                 regs: torch.Tensor) -> torch.Tensor:
     """One HyperBall iteration over a device CSR; returns new registers.
 
     ``csr_off``: int64[n+1] offsets (host or device); ``succ``: int32/int64
-    [m] on the device; ``regs``: uint8 (n, 2^log2m) on the same device;
-    ``src``: the per-arc source index (``CSRGraph.arc_sources()``), built
-    once by the caller.  Without ``src`` the round builds it from
-    ``csr_off``."""
-    if regs.dtype != torch.uint8 or regs.dim() != 2:
-        raise ValueError("regs must be uint8 (n, 2^log2m)")
-    dev = regs.device
-    n = regs.shape[0]
-    m = succ.numel()
-    if succ.device != dev:
-        raise ValueError("succ must be on regs' device")
-    if src is None:
-        co = torch.as_tensor(csr_off, device=dev).to(torch.int64)
-        if co.shape[0] != n + 1:
-            raise ValueError("csr_off must have n+1 entries")
-        src = torch.repeat_interleave(
-            torch.arange(n, device=dev, dtype=torch.int32), co[1:] - co[:-1],
-            output_size=m)
-    elif src.device != dev or src.numel() != m:
-        raise ValueError("src must hold one source per arc, on regs' device")
-    return _scatter_max_rows(regs.clone(), src, regs, succ)
+    [m] on the device; ``regs``: uint8 (n, 2^log2m) on the same device."""
+    co = torch.as_tensor(csr_off, device=regs.device).to(torch.int64)
+    return merge_rows(co.contiguous(), succ.contiguous(),
+                      regs.contiguous())[0]
 
 
 class HyperBall:
@@ -330,10 +378,11 @@ class HyperBall:
         self._mod_mask = mask
         self.modified = changed.numel()
 
-    def _merge(self, nodes: torch.Tensor, regs) -> tuple:
-        """Merged registers of ``nodes`` (device int64) from the successor
-        rows of ``regs`` (device tensor, or host rows when external), and
-        the per-node changed flags.  Returns (new rows, changed, arcs)."""
+    def _merge_external(self, nodes: torch.Tensor) -> tuple:
+        """Merged registers of ``nodes`` (device int64) with the registers
+        on the host: the successor rows are gathered there (the "spill"
+        read) and merged on the device.  Returns (new rows, changed flags,
+        arcs)."""
         g = self.g
         lo = g.offsets[nodes]
         cnt = g.offsets[nodes + 1] - lo
@@ -341,34 +390,26 @@ class HyperBall:
         seg = torch.repeat_interleave(
             torch.arange(nodes.numel(), device=self.device), cnt,
             output_size=aidx.numel())
-        tgt = g.succ[aidx]
+        table = self._rows(g.succ[aidx].to(torch.int64))
         old = self._rows(nodes)
-        if self.external_chunk:
-            # the host "spill" read: successor rows gathered on the host
-            table = self._rows(tgt.to(torch.int64))
-            rows = torch.arange(tgt.numel(), device=self.device)
-        else:
-            table, rows = regs, tgt
-        new = _scatter_max_rows(old.clone(), seg, table, rows)
+        new = _scatter_max_rows(old.clone(), seg, table,
+                                torch.arange(aidx.numel(), device=self.device))
         return new, (new != old).any(1), aidx.numel()
 
     def _iterate_device(self, must: Optional[torch.Tensor]):
-        if must is None:
-            with span("hyperball.merge"):
-                new = device_round(None, self.g.succ, self.regs,
-                                   src=self.g.arc_sources())
-            with span("hyperball.changed"):
-                changed = torch.nonzero((new != self.regs).any(1)).squeeze(1)
-                self.regs = new
-                self._mark(changed)
-            return changed, self.g.num_arcs
+        g = self.g
         with span("hyperball.merge"):
-            new, ch, tot = self._merge(must, self.regs)
-            self.regs[must] = new
+            new, ch = merge_rows(g.offsets, g.succ, self.regs, must)
+            if must is None:
+                self.regs, touched = new, g.num_arcs
+            else:
+                self.regs[must] = new
+                touched = (g.offsets[must + 1] - g.offsets[must]).sum()
         with span("hyperball.changed"):
-            changed = must[ch]
+            changed = (torch.nonzero(ch).squeeze(1) if must is None
+                       else must[ch])
             self._mark(changed)
-        return changed, tot
+        return changed, touched
 
     def _iterate_external(self, must: Optional[torch.Tensor]):
         """Batches of <= external_chunk arcs of the active nodes, each read
@@ -387,7 +428,7 @@ class HyperBall:
                                          "right")) - 1
                 hi = min(max(hi, lo + 1), len(cnt))
                 b = must[lo:hi]
-                new, ch, tb = self._merge(b, None)
+                new, ch, tb = self._merge_external(b)
                 if bool(ch.any()):
                     updates.append((b[ch].cpu().numpy(),
                                     new[ch].cpu().numpy()))
@@ -426,8 +467,9 @@ class HyperBall:
                 changed, touched = self._iterate_external(must)
             else:
                 changed, touched = self._iterate_device(must)
+            touched = int(touched)
             self.mode_history.append(mode)
-            self.arcs_touched.append(int(touched))
+            self.arcs_touched.append(touched)
             count("hyperball.arcs", touched)
             self.iteration = t
             # incremental count update: only changed counters moved

@@ -192,15 +192,14 @@ def bench_graph(bv, data, target_arcs, *, device, oracle=None):
     # ---- one HyperBall round over the device CSR ----
     co_t, succ_t, _ = decode_to_csr(plan)
     g = CSRGraph.from_decoded(co_t, succ_t)
-    src = g.arc_sources()
     regs = HB.hyperloglog_init_device(bv.num_nodes, LOG2M, 0, device)
-    r = HB.device_round(g.offsets, g.succ, regs, src=src)
+    r = HB.device_round(g.offsets, g.succ, regs)
     sync(device)
     t0 = time.perf_counter()
-    r = HB.device_round(g.offsets, g.succ, regs, src=src)
+    r = HB.device_round(g.offsets, g.succ, regs)
     sync(device)
     hb_s = time.perf_counter() - t0
-    del r, regs, src, g, succ_t
+    del r, regs, g, succ_t
 
     # ---- the oracle, decoded NOW, after the timing ----
     if oracle is None:

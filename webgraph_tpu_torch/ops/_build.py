@@ -13,8 +13,9 @@ Nothing is built when this module is imported.
 ``-Xptxas -v`` reported: registers, stack frame and spill bytes.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
-one where it launches its kernel and nowhere else.  The main path's two
-kernels have a key each, and so has every probe site of ``experiments/``
+one where it launches its kernel and nowhere else.  The main path's
+kernels (B1, B2 and HyperBall's merge) have a key each, and so has every
+probe site of ``experiments/``
 (the ports in ``webgraph_tpu_torch/experiments/``), keyed by the probe
 module and the kernel it launches.
 """
@@ -36,7 +37,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 _WGNATIVE_SRC = os.path.join(_PKG, "native", "wgnative.cpp")
 
-LAUNCHES = {"bv_decode_lanes": 0, "compact_runs": 0}
+LAUNCHES = {"bv_decode_lanes": 0, "compact_runs": 0, "hyperball_merge": 0}
 # one key per ``pl.pallas_call`` site of the JAX package's probes: the CUDA
 # source of its kernel and the site (file:line) it replaces
 _P = "experiments/pallas_probe"
@@ -79,6 +80,8 @@ SIGNATURES = {
     + [_ci] * 8 + [_vp],
     "wg_compact_runs": [_vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp, _i64, _i64,
                         _vp],
+    "wg_hyperball_merge": [_vp, _vp, _ci, _vp, _i64, _vp, _i64, _vp, _vp,
+                           _vp],
     # probe kernels: (variant, ..., stream)
     "wg_probe_loop": [_ci, _ci, _ci, _vp, _vp, _vp, _i64, _ci, _ci, _vp],
     "wg_probe_prims": [_ci, _vp, _vp, _vp, _ci, _ci, _vp],
