@@ -67,10 +67,12 @@ Phases, each printing one line:
    encoder), read back to the card with ``load_csr(basename)`` -- the
    cold plan, the resolve passes and ``decode_to_csr``, so B1 and B2, with
    launch counts reset just before and read just after -- and held
-   ``torch.equal`` to it; a 500,000-node synthetic (``OFFLINE_NODES``:
-   the EF bulk store is numpy on the host, ~100 s at the slice) is written
-   as an EFGraph (``EFGraph.store``, the bulk numpy writer), decoded on
-   the card (``EFGraph.to_device``, torch ops) and held equal to it; the line
+   ``torch.equal`` to it; the slice is written as an EFGraph by the device
+   writer (``EFGraph.store(backend="cuda")``), decoded on the card
+   (``EFGraph.to_device``, torch ops) and held equal to it, and a
+   500,000-node synthetic (``OFFLINE_NODES``: the numpy store takes ~100 s
+   at the slice) is stored by both the numpy and the device writer, the
+   files held equal (``ef_store_compared``); the line
    gives each format's file sizes, bits per link, store and load seconds,
    the decode stages, the EF decode's rate and peak bytes, its split into
    the plan (upload, outdegrees) and decodes of the resident stream (one
@@ -256,10 +258,10 @@ SAMPLE = 2000
 CENTRALITY_SOURCES = 32
 CENTRALITY_CHECKED = 4
 # the encode phase's offline transforms and the cli phase's text formats: a
-# smaller graph cut into this many batches or more; the EF bulk store
-# (numpy on the host, ~100 s at the slice) runs at OFFLINE_NODES too, so
-# that the whole script, the bench phase included, stays inside its time
-# limit
+# smaller graph cut into this many batches or more; the files phase's
+# comparison of the EF numpy store (on the host, ~100 s at the slice) with
+# the device store runs at OFFLINE_NODES too, so that the whole script, the
+# bench phase included, stays inside its time limit
 OFFLINE_NODES = 500_000
 OFFLINE_BATCHES = 5
 # the labels phase: the geometric distribution of the gamma-coded labels
@@ -1020,18 +1022,12 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
             raise AssertionError("load_csr differs from the slice's CSR")
         del g
 
-        # EFGraph at OFFLINE_NODES (its bulk store is numpy on the host,
-        # ~100 s at the slice): written from the host CSR, decoded on the
-        # card
-        eco, esu = synthesize_webgraph(OFFLINE_NODES, seed=1)
-        if int(esu.max(initial=-1)) >= OFFLINE_NODES:
-            raise AssertionError("a successor at or above n: no EF upper "
-                                 "bound")
-        ef_graph = CSRGraph(eco, esu, device=dev)
+        # EFGraph of the slice: stored by the device writer from the CSR on
+        # the card, decoded on the card
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        EFGraph.store(CSRGraph(eco, esu, device="cpu"), ef)
+        EFGraph.store(graph, ef, backend="cuda")
         ef_store_s = time.perf_counter() - t0
-        del eco, esu
         t0 = time.perf_counter()
         efg = EFGraph.load(ef)
         ef_load_s = time.perf_counter() - t0
@@ -1042,12 +1038,11 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
         torch.cuda.synchronize()
         ef_peak = torch.cuda.max_memory_allocated() - resident
         ef_s = g.report["ef_decode_s"]
-        ef_m = ef_graph.num_arcs
-        if not (g.device == dev and torch.equal(g.offsets, ef_graph.offsets)
-                and torch.equal(g.succ, ef_graph.succ)):
+        if not (g.device == dev and torch.equal(g.offsets, graph.offsets)
+                and torch.equal(g.succ, graph.succ)):
             raise AssertionError("EFGraph.to_device differs from the "
-                                 "graph stored")
-        del g, ef_graph
+                                 "slice's CSR")
+        del g
         # where ef_decode_s goes: the plan (upload, outdegrees, arc count),
         # then decodes of the resident stream, one under the profiler
         t0 = time.perf_counter()
@@ -1064,22 +1059,45 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
         ef_profile = profile_window(plan.decode)
         del plan, efg
         sizes = {"BVGraph": _sizes(bv), "EFGraph": _sizes(ef)}
+
+        # the device writer against the numpy one at OFFLINE_NODES (the
+        # numpy store takes ~100 s at the slice): the three files equal,
+        # the properties bar their date line
+        eco, esu = synthesize_webgraph(OFFLINE_NODES, seed=1)
+        ef_np, ef_cu = os.path.join(tmp, "ef_np"), os.path.join(tmp, "ef_cu")
+        t0 = time.perf_counter()
+        EFGraph.store(CSRGraph(eco, esu, device="cpu"), ef_np)
+        ef_np_store_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        EFGraph.store(CSRGraph(eco, esu, device=dev), ef_cu, backend="cuda")
+        ef_cu_store_s = time.perf_counter() - t0
+        del eco, esu
+        for ext in (".graph", ".offsets"):
+            with open(ef_np + ext, "rb") as fa, open(ef_cu + ext, "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"the EF device store's {ext} "
+                                         "differs from the numpy store's")
+        if _props_lines(ef_np + ".properties") != _props_lines(
+                ef_cu + ".properties"):
+            raise AssertionError("the EF device store's .properties differs "
+                                 "from the numpy store's")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return dict(
         card=card, nodes=n, arcs=m, sizes=sizes,
-        ef_nodes=OFFLINE_NODES, ef_arcs=ef_m,
         bits_per_link={"BVGraph": sizes["BVGraph"]["graph"] * 8 / m,
-                       "EFGraph": sizes["EFGraph"]["graph"] * 8 / ef_m},
+                       "EFGraph": sizes["EFGraph"]["graph"] * 8 / m},
         store_s={"BVGraph": bv_store_s, "EFGraph": ef_store_s},
+        ef_store_compared=dict(nodes=OFFLINE_NODES, numpy_s=ef_np_store_s,
+                               cuda_s=ef_cu_store_s, files_equal=True),
         load_s={"BVGraph": rep["load_s"], "EFGraph": ef_load_s},
         route=rep["route"], plan_s=rep["plan_s"],
         resolve_s=rep["resolve_s"], resolve_passes=rep["resolve_passes"],
         decode_to_csr_s=rep["decode_to_csr_s"],
         fallback_arcs=rep["fallback_arcs"], load_csr_s=bv_total_s,
         launches=launches, ef_decode_s=ef_s,
-        ef_decode_Medges_per_s=ef_m / ef_s / 1e6,
+        ef_decode_Medges_per_s=m / ef_s / 1e6,
         ef_decode_peak_bytes=ef_peak, ef_resident_bytes=resident,
         ef_plan_s=ef_plan_s, ef_resident_decode_s=min(ef_steady_s),
         ef_profile=ef_profile, equal_to_slice=True)

@@ -22,8 +22,11 @@ upperbound, quantum, byteorder, version (EFGraph.java:686-698).
 
 ``store`` writes every node at once with numpy: each entry's layout is
 closed-form in its outdegree, so the fields are packed in bulk
-(:func:`ef_stream`); ``backend="python"`` is the per-arc loop of the JAX
-package, the plain version the tests hold the bulk writer to.
+(:func:`ef_stream`); ``backend="cuda"`` packs the same way with torch ops
+on the graph's device (:func:`ef_stream_device`, under the spans
+``wg.ef.store`` > ``.layout``, ``.lists``, ``.pointers``, ``.write``);
+``backend="python"`` is the per-arc loop of the JAX package, the plain
+version the tests hold the bulk writers to.
 """
 
 from __future__ import annotations
@@ -41,11 +44,13 @@ from ..core.graph import (CSRGraph, ImmutableGraph, host_csr, host_lists,
 from ..device import require_cuda
 from ..ops.bitio import BitWriter
 from ..ops.longword import LongWordReader, LongWordWriter
+from ..ops.vencode import msb64, pack_gaps
 from ..settings import CompressionFlags as _C
 from ..utils import properties as javaprops
+from ..utils.trace import span
 
-__all__ = ["EFGraph", "ef_stream", "lower_bits", "pointer_size",
-           "number_of_pointers"]
+__all__ = ["EFGraph", "ef_stream", "ef_stream_device", "lower_bits",
+           "pointer_size", "number_of_pointers"]
 
 GRAPH_EXTENSION = ".graph"
 OFFSETS_EXTENSION = ".offsets"
@@ -247,15 +252,23 @@ def ef_stream(co: np.ndarray, su: np.ndarray, upper_bound: int,
     _or_fields_lsb(words, start + msb + 1, (d + 1) - (1 << msb), msb)
     low_base = start + gamma + npt * psize
     up_base = low_base + (d + 1) * l
+    for x0, x1 in _chunks(co):
+        _store_chunk(words, co, su, d, l, psize, npt, start + gamma,
+                     low_base, up_base, u, log2_quantum, x0, x1)
+    return words, entry, int(gamma.sum()), total - int(gamma.sum())
+
+
+def _chunks(co: np.ndarray) -> Iterator[Tuple[int, int]]:
+    """Node bounds [x0, x1) of the store's chunks: nodes are added to a
+    chunk until it holds ``_STORE_CHUNK_ARCS`` arcs, one node at least."""
+    n = len(co) - 1
     x0 = 0
     while x0 < n:
         x1 = int(np.searchsorted(co, co[x0] + _STORE_CHUNK_ARCS,
                                  side="right")) - 1
         x1 = min(max(x1, x0 + 1), n)
-        _store_chunk(words, co, su, d, l, psize, npt, start + gamma,
-                     low_base, up_base, u, log2_quantum, x0, x1)
+        yield x0, x1
         x0 = x1
-    return words, entry, int(gamma.sum()), total - int(gamma.sum())
 
 
 def _store_chunk(words, co, su, d, l, psize, npt, ptr_base, low_base,
@@ -292,6 +305,111 @@ def _store_chunk(words, co, su, d, l, psize, npt, ptr_base, low_base,
     ps = psize[x0:x1][prow]
     _or_fields_lsb(words, ptr_base[x0:x1][prow] + (k - 1) * ps, thr + below,
                    ps)
+
+
+# -- the device writer ---------------------------------------------------------
+#
+# ``ef_stream`` as torch ops on the graph's device.  The words are int64
+# tensors holding the uint64 words' bits; every field goes in by
+# ``index_add_``, one add for each word it touches: fields share no bit,
+# so the add is the OR and never carries.
+
+
+def _or_ones(words: torch.Tensor, pos: torch.Tensor) -> None:
+    """Set the bits at ``pos`` (each in its own field)."""
+    words.index_add_(0, pos >> 6, torch.ones_like(pos) << (pos & 63))
+
+
+def _or_fields_dev(words: torch.Tensor, pos: torch.Tensor, val: torch.Tensor,
+                   width: torch.Tensor) -> None:
+    """OR fields of ``width`` (0..63) bits, values below 2^width, into
+    LSB-first words; fields disjoint."""
+    w = pos >> 6
+    sh = pos & 63
+    words.index_add_(0, w, val << sh)
+    spill = torch.nonzero(sh + width > 64).squeeze(1)
+    if spill.numel():
+        words.index_add_(0, w[spill] + 1, val[spill] >> (64 - sh[spill]))
+
+
+def _layout_dev(d: torch.Tensor, u: int, log2_quantum: int):
+    """``_layout`` of outdegrees ``d`` (an int64 tensor)."""
+    cl = d + 1
+    msb = msb64(cl)
+    l = msb64(u // cl).clamp(min=0)
+    shifted = torch.full_like(l, u) >> l
+    psize = msb64(cl + shifted - 1) + 1
+    npt = torch.where(psize > 0, shifted >> log2_quantum, 0)
+    entry = 2 * msb + 1 + npt * psize + cl * l + shifted + cl
+    return msb, l, psize, npt, entry
+
+
+def ef_stream_device(co: torch.Tensor, su: torch.Tensor, upper_bound: int,
+                     log2_quantum: int):
+    """:func:`ef_stream` on the tensors' device, in the same chunks of
+    whole nodes: (int64 words, int64[n] entry bits, outdegree bits,
+    successor bits), each equal to what :func:`ef_stream` gives (the words
+    as int64 of the same bits).  The upper bound must be below 2^32."""
+    u = int(upper_bound)
+    if not 0 <= u < 1 << 32:
+        raise ValueError("the device store needs an upper bound below 2^32")
+    co = co.to(torch.int64)
+    dev = co.device
+    with span("ef.store.layout"):
+        co_h = co.cpu().numpy()
+        d = co[1:] - co[:-1]
+        msb, l, psize, npt, entry = _layout_dev(d, u, log2_quantum)
+        start = torch.cumsum(entry, 0) - entry
+        total = int(entry.sum())
+        words = torch.zeros(total // 64 + 1, dtype=torch.int64, device=dev)
+        # the outdegree: msb zeros, a one, then the msb low bits of d + 1
+        _or_ones(words, start + msb)
+        _or_fields_dev(words, start + msb + 1, (d + 1) - (1 << msb), msb)
+        ptr_base = start + 2 * msb + 1
+        low_base = ptr_base + npt * psize
+        up_base = low_base + (d + 1) * l
+        bits_out = int((2 * msb + 1).sum())
+        del start, msb
+    for x0, x1 in _chunks(co_h):
+        a0, a1 = int(co_h[x0]), int(co_h[x1])
+        nn = x1 - x0
+        with span("ef.store.lists"):
+            cl = d[x0:x1] + 1
+            ext_off = co[x0:x1] - a0 + torch.arange(nn, device=dev)
+            size = a1 - a0 + nn
+            row = torch.repeat_interleave(torch.arange(nn, device=dev), cl,
+                                          output_size=size)
+            i = torch.arange(size, device=dev) - ext_off[row]
+            last = i == cl[row] - 1
+            ext = torch.full((size,), u, dtype=torch.int64, device=dev)
+            ext[~last] = su[a0:a1].to(torch.int64)
+            # each list and its sentinel u strictly increasing, from 0 up
+            bad = ((ext[:-1] >= ext[1:]) & ~last[:-1]).any() | (ext < 0).any()
+            if bool(bad):
+                raise ValueError(f"successor lists must be strictly "
+                                 f"increasing and lie in [0, {u})")
+            lx = l[x0:x1][row]
+            _or_fields_dev(words, low_base[x0:x1][row] + i * lx,
+                           ext & ((1 << lx) - 1), lx)
+            _or_ones(words, up_base[x0:x1][row] + (ext >> lx) + i)
+        with span("ef.store.pointers"):
+            # pointer k of a list: k * 2^q plus its successors whose upper
+            # part is below k * 2^q (one past the (k * 2^q)-th zero)
+            pn = torch.nonzero(npt[x0:x1]).squeeze(1)
+            if pn.numel():
+                cnt = npt[x0:x1][pn]
+                tot = int(cnt.sum())
+                prow = torch.repeat_interleave(pn, cnt, output_size=tot)
+                k = (torch.arange(tot, device=dev) - torch.repeat_interleave(
+                    torch.cumsum(cnt, 0) - cnt, cnt, output_size=tot) + 1)
+                thr = k << log2_quantum
+                key = (row << 32) | (ext >> lx)   # by node, then value
+                below = torch.searchsorted(key, (prow << 32) | thr) \
+                    - ext_off[prow]
+                ps = psize[x0:x1][prow]
+                _or_fields_dev(words, ptr_base[x0:x1][prow] + (k - 1) * ps,
+                               thr + below, ps)
+    return words, entry, bits_out, total - bits_out
 
 
 # -- the codec ----------------------------------------------------------------
@@ -504,14 +622,22 @@ class EFGraph(ImmutableGraph):
               log2_quantum: int = DEFAULT_LOG2_QUANTUM,
               byte_order: str = "little",
               comment: str = "EFGraph properties",
-              backend: str = "numpy") -> Dict[str, str]:
+              backend: str = "numpy", device=None) -> Dict[str, str]:
         """Write ``graph`` (a ``CSRGraph`` on any device, or any host graph
         with ``iter_nodes``) to ``basename.{graph,offsets,properties}``.
         ``backend``: "numpy" packs every node at once (:func:`ef_stream`),
-        "python" is the JAX package's per-arc loop; the bytes are equal."""
+        "python" is the JAX package's per-arc loop, "cuda" packs on
+        ``device`` (:func:`ef_stream_device`; the card when None, "cpu"
+        runs the same torch ops there), where a ``CSRGraph`` already on it
+        stays; the bytes are equal."""
         n = graph.num_nodes
         if upper_bound < 0:
             upper_bound = n
+        if backend == "cuda":
+            with span("ef.store"):
+                return cls._store_device(graph, basename, upper_bound,
+                                         log2_quantum, byte_order, comment,
+                                         device)
         if backend == "numpy":
             co, su = host_csr(graph)
             words, entry, bits_out, bits_succ = ef_stream(
@@ -526,6 +652,40 @@ class EFGraph(ImmutableGraph):
                 graph, upper_bound, log2_quantum)
         else:
             raise ValueError(f"unknown backend {backend!r}")
+        return cls._write(basename, words, offs_b, n, m, upper_bound,
+                          log2_quantum, byte_order, comment, bits_out,
+                          bits_succ)
+
+    @classmethod
+    def _store_device(cls, graph, basename: str, upper_bound: int,
+                      log2_quantum: int, byte_order: str, comment: str,
+                      device) -> Dict[str, str]:
+        """The device pack (:func:`ef_stream_device`) and the offsets
+        packed there; only the words and the offsets' bytes come to the
+        host."""
+        dev = require_cuda() if device is None else torch.device(device)
+        if isinstance(graph, CSRGraph):
+            co, su = graph.offsets.to(dev), graph.succ.to(dev)
+        else:
+            co_h, su_h = host_csr(graph)
+            co = torch.from_numpy(co_h).to(dev)
+            su = torch.from_numpy(su_h).to(dev)
+        words, entry, bits_out, bits_succ = ef_stream_device(
+            co, su, upper_bound, log2_quantum)
+        with span("ef.store.write"):
+            offs_b, _ = pack_gaps(torch.cat([entry.new_zeros(1), entry]),
+                                  _C.DELTA)
+            del entry
+            words = words.cpu().numpy().view(np.uint64)
+            return cls._write(basename, words, offs_b, graph.num_nodes,
+                              su.numel(), upper_bound, log2_quantum,
+                              byte_order, comment, bits_out, bits_succ)
+
+    @staticmethod
+    def _write(basename: str, words: np.ndarray, offs_b: bytes, n: int,
+               m: int, upper_bound: int, log2_quantum: int, byte_order: str,
+               comment: str, bits_out: int, bits_succ: int) -> Dict[str, str]:
+        """The three files of a packed stream; returns the properties."""
         dt = "<u8" if byte_order == "little" else ">u8"
         with open(basename + GRAPH_EXTENSION, "wb") as f:
             f.write(words.astype(dt).tobytes())

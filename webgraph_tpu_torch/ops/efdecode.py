@@ -24,6 +24,11 @@ Per-arc work runs in chunks of whole nodes of about ``CHUNK_ARCS`` arcs, so
 the temporaries stay a few GB at hundreds of millions of arcs.  Device
 memory beyond the CSR: the stream, one int64 rank per stream word, and six
 int64 per node.
+
+Spans (``utils/trace.py``): ``wg.ef.plan`` > ``.upload``, ``.outdegrees``
+for the plan; ``wg.ef.decode`` > ``.layout``, ``.ranks``, ``.chunks`` (the
+chunk bounds' readback), ``.select`` (a chunk's per-arc work) for each
+decode, which counts ``ef.arcs`` and ``ef.chunks``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.trace import count, span
 from .ef_index import bits_at, low_rank, popcount64, select_in_word
 
 __all__ = ["EFDevicePlan", "ef_decode_to_csr", "CHUNK_ARCS"]
@@ -67,23 +73,28 @@ class EFDevicePlan:
         if not 0 <= upper_bound < (1 << 31):
             raise ValueError("the device decode needs an upper bound below "
                              "2^31 (int32 successors)")
-        self.device = torch.device(device)
-        words = np.ascontiguousarray(words64, dtype=np.uint64)
-        self.nwords = len(words)
-        # two zero guard words: bits_at reads one 32-bit word past its field
-        words = np.concatenate([words, np.zeros(2, dtype=np.uint64)])
-        self.words = torch.from_numpy(words.view(np.int64)).to(self.device)
-        self.w32 = self.words.view(torch.int32)
-        offsets = np.asarray(offsets, dtype=np.int64)
-        self.n = len(offsets) - 1
-        self.upper_bound = int(upper_bound)
-        self.log2_quantum = int(log2_quantum)
-        self.starts = torch.from_numpy(offsets[:-1]).to(self.device)
-        self.d, self.adv = read_gamma(self.w32, self.starts)
-        self.csr_off = torch.zeros(self.n + 1, dtype=torch.int64,
-                                   device=self.device)
-        torch.cumsum(self.d, 0, out=self.csr_off[1:])
-        self.m = int(self.csr_off[-1])
+        with span("ef.plan"):
+            self.device = torch.device(device)
+            with span("ef.plan.upload"):
+                words = np.ascontiguousarray(words64, dtype=np.uint64)
+                self.nwords = len(words)
+                # two zero guard words: bits_at reads one 32-bit word past
+                # its field
+                words = np.concatenate([words, np.zeros(2, dtype=np.uint64)])
+                self.words = torch.from_numpy(words.view(np.int64)).to(
+                    self.device)
+                self.w32 = self.words.view(torch.int32)
+                offsets = np.asarray(offsets, dtype=np.int64)
+                self.n = len(offsets) - 1
+                self.upper_bound = int(upper_bound)
+                self.log2_quantum = int(log2_quantum)
+                self.starts = torch.from_numpy(offsets[:-1]).to(self.device)
+            with span("ef.plan.outdegrees"):
+                self.d, self.adv = read_gamma(self.w32, self.starts)
+                self.csr_off = torch.zeros(self.n + 1, dtype=torch.int64,
+                                           device=self.device)
+                torch.cumsum(self.d, 0, out=self.csr_off[1:])
+                self.m = int(self.csr_off[-1])
 
     def _layout(self):
         """(l, low_base, up_base) per node (EFGraph.java:140-168)."""
@@ -116,32 +127,40 @@ class EFDevicePlan:
     def decode(self, chunk_arcs: int = CHUNK_ARCS
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (csr_off int64[n+1], succ int32[m]), both on the device."""
-        dev = self.device
-        succ = torch.empty(self.m, dtype=torch.int32, device=dev)
-        if self.m == 0:
+        with span("ef.decode"):
+            dev = self.device
+            succ = torch.empty(self.m, dtype=torch.int32, device=dev)
+            count("ef.arcs", self.m)
+            if self.m == 0:
+                return self.csr_off, succ
+            with span("ef.decode.layout"):
+                l, low_base, up_base = self._layout()
+            with span("ef.decode.ranks"):
+                rank = self._word_ranks()
+                w0 = up_base >> 6
+                rank0 = rank[w0] + low_rank(self.words[w0], up_base & 63)
+                del w0
+            with span("ef.decode.chunks"):
+                chunks = list(self._chunks(chunk_arcs))
+            count("ef.chunks", len(chunks))
+            for x0, x1 in chunks:
+                with span("ef.decode.select"):
+                    a0, a1 = int(self.csr_off[x0]), int(self.csr_off[x1])
+                    if a0 == a1:
+                        continue
+                    row = torch.repeat_interleave(
+                        torch.arange(x0, x1, device=dev), self.d[x0:x1],
+                        output_size=a1 - a0)
+                    j = torch.arange(a0, a1, device=dev) - self.csr_off[row]
+                    g = rank0[row] + j          # the arc's one, globally
+                    w = torch.searchsorted(rank, g, right=True) - 1
+                    one = w * 64 + select_in_word(self.words[w], g - rank[w])
+                    del g, w
+                    lx = l[row]
+                    upper = one - up_base[row] - j
+                    low = bits_at(self.w32, low_base[row] + j * lx, lx)
+                    succ[a0:a1] = ((upper << lx) | low).to(torch.int32)
             return self.csr_off, succ
-        l, low_base, up_base = self._layout()
-        rank = self._word_ranks()
-        w0 = up_base >> 6
-        rank0 = rank[w0] + low_rank(self.words[w0], up_base & 63)
-        del w0
-        for x0, x1 in self._chunks(chunk_arcs):
-            a0, a1 = int(self.csr_off[x0]), int(self.csr_off[x1])
-            if a0 == a1:
-                continue
-            row = torch.repeat_interleave(
-                torch.arange(x0, x1, device=dev), self.d[x0:x1],
-                output_size=a1 - a0)
-            j = torch.arange(a0, a1, device=dev) - self.csr_off[row]
-            g = rank0[row] + j                 # the arc's one, globally
-            w = torch.searchsorted(rank, g, right=True) - 1
-            one = w * 64 + select_in_word(self.words[w], g - rank[w])
-            del g, w
-            lx = l[row]
-            upper = one - up_base[row] - j
-            low = bits_at(self.w32, low_base[row] + j * lx, lx)
-            succ[a0:a1] = ((upper << lx) | low).to(torch.int32)
-        return self.csr_off, succ
 
 
 def ef_decode_to_csr(words64: np.ndarray, offsets: np.ndarray,
