@@ -9,10 +9,11 @@ rank processes and over listed devices, then the analytics over it
 (HyperBall to convergence, BFS, connected and strongly connected
 components, geometric centrality, statistics) -- at uk-2002
 scale (18.5M nodes, ~355M arcs of a synthetic web graph), holding the
-main path's hand-written CUDA kernels (B1, B2 and HyperBall's merge)
-against their plain PyTorch versions on the card; and the probe path -- every probe of the JAX package's
-``experiments/`` ported to a CUDA kernel in
-``webgraph_tpu_torch/experiments/`` -- at the probes' own shapes.
+main path's hand-written CUDA kernels (B1, B2, HyperBall's merge and
+the EF decode) against their plain PyTorch versions on the card; and the
+probe path -- every probe of the JAX package's ``experiments/`` ported to
+a CUDA kernel in ``webgraph_tpu_torch/experiments/`` -- at the probes'
+own shapes.
 
 Phases, each printing one line:
 
@@ -69,14 +70,17 @@ Phases, each printing one line:
    launch counts reset just before and read just after -- and held
    ``torch.equal`` to it; the slice is written as an EFGraph by the device
    writer (``EFGraph.store(backend="cuda")``), decoded on the card
-   (``EFGraph.to_device``, torch ops) and held equal to it, and a
+   (``EFGraph.to_device``: the kernel ``ef_decode``, route "cuda") and held
+   equal to it; the kernel is held whole against its plain twin
+   (``decode_plain``) at the slice, with one launch a decode, and both are
+   timed beside the byte bound (``ef_kernel``); and a
    500,000-node synthetic (``OFFLINE_NODES``: the numpy store takes ~100 s
    at the slice) is stored by both the numpy and the device writer, the
    files held equal (``ef_store_compared``); the line
    gives each format's file sizes, bits per link, store and load seconds,
    the decode stages, the EF decode's rate and peak bytes, its split into
-   the plan (upload, outdegrees) and decodes of the resident stream (one
-   under ``torch.profiler``), and the card;
+   the plan (upload, outdegrees) and decodes of the resident stream, and
+   the card;
 8. encode: the device encoder (``BVGraph.store(backend="cuda")``,
    ``ops/vencode.py``) and the transforms at the slice's scale.  The
    slice's device CSR is stored and held byte-equal (``.graph``,
@@ -168,9 +172,10 @@ Phases, each printing one line:
    to the generator on the kernel route -- then the whole basename through
    ``load_csr``, equal to the generator or raising before any launch.
 
-Then one JSON line of the kernels (the three main-path kernels and the 23
+Then one JSON line of the kernels (the four main-path kernels and the 23
 probe sites, each with its launches, times, bound and library time; the
-merge's at log2m 6 and bound by each row read once), and last
+merge's at log2m 6 and bound by each row read once; the EF decode's at the
+slice, from the files phase), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without a CUDA device it fails before doing anything.
 
@@ -226,9 +231,14 @@ KERNELS = {
     "hyperball_merge": dict(source="webgraph_tpu_torch/csrc/hyperball.cu",
                             replaces="none (webgraph_tpu/algo/hyperball.py:"
                             "296, device_round, is an XLA program)"),
+    "ef_decode": dict(source="webgraph_tpu_torch/csrc/ef_decode.cu",
+                      replaces="none (webgraph_tpu/ops/efdecode.py:102, "
+                      "_ef_decode_device, is an XLA program)"),
 }
 # the kernels every decode to a CSR launches (B1, B2)
 DECODE_KERNELS = ("bv_decode_lanes", "compact_runs")
+# the kernels the slice's main path launches (the EF decode runs in files)
+SLICE_KERNELS = (*DECODE_KERNELS, "hyperball_merge")
 # the H100 SXM's published peaks (NVIDIA H100 datasheet): device memory
 # rate, and float32 outside the tensor cores, the rate at which the probes'
 # integer steps are counted
@@ -674,8 +684,8 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
     torch.cuda.synchronize()
     launches = {k: _build.LAUNCHES[k] for k in KERNELS}
     peak_main = torch.cuda.max_memory_allocated()
-    for k, v in launches.items():
-        if v <= 0:
+    for k in SLICE_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"the main path never launched {k}")
     if _build.LAUNCHES["hyperball_merge"] != 1:
         raise AssertionError("the HyperBall round did not launch its merge")
@@ -989,10 +999,33 @@ def _sizes(base: str) -> dict:
             for ext in (".graph", ".offsets", ".properties")}
 
 
-def phase_files(dev, card: str, graph, hco, hsu) -> dict:
+def _ef_vs_plain(plan, errors: Errors) -> dict:
+    """The EF decode kernel held whole against its plain twin (offsets and
+    successors) on ``plan``, one launch a decode, both timed by CUDA events,
+    with its byte bound: the stream read once, 4 bytes a successor and 8 a
+    node's offset written once (the benchmark's ``ef_decode_bytes``)."""
+    _build.reset_launches()
+    off, got = plan.decode()
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["ef_decode"]
+    if launches != 1:
+        raise AssertionError(f"a decode launched ef_decode {launches} times")
+    off_p, exp = plan.decode_plain()
+    errors.check("ef_decode", "the slice's offsets", off, off_p)
+    errors.check("ef_decode", "the slice's successors", got, exp)
+    del off, got, off_p, exp
+    ms = min(cuda_ms(plan.decode, reps=5, warmup=1) for _ in range(3))
+    plain_ms = cuda_ms(plan.decode_plain)
+    nbytes = plan.nwords * 8 + 4 * plan.m + 8 * plan.n
+    return dict(nodes=plan.n, arcs=plan.m, launches=launches, ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, bound=bound(nbytes))
+
+
+def phase_files(dev, card: str, graph, hco, hsu, errors: Errors) -> dict:
     """The file layer at the slice's scale: BVGraph and EFGraph basenames
     written, read back to the card through the port's entries, and held
-    equal to the slice's CSR.  The directory is removed at the end."""
+    equal to the slice's CSR; the EF decode kernel held against its plain
+    twin.  The directory is removed at the end."""
     n, m = graph.num_nodes, graph.num_arcs
     if int(hsu.max(initial=-1)) >= n:
         raise AssertionError("a successor at or above n: no EF upper bound")
@@ -1038,6 +1071,9 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
         torch.cuda.synchronize()
         ef_peak = torch.cuda.max_memory_allocated() - resident
         ef_s = g.report["ef_decode_s"]
+        if g.report["route"] != "cuda":
+            raise AssertionError(f"EFGraph.to_device took the "
+                                 f"{g.report['route']} route")
         if not (g.device == dev and torch.equal(g.offsets, graph.offsets)
                 and torch.equal(g.succ, graph.succ)):
             raise AssertionError("EFGraph.to_device differs from the "
@@ -1056,7 +1092,7 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
             plan.decode()
             torch.cuda.synchronize()
             ef_steady_s.append(time.perf_counter() - t0)
-        ef_profile = profile_window(plan.decode)
+        ef_kernel = _ef_vs_plain(plan, errors)
         del plan, efg
         sizes = {"BVGraph": _sizes(bv), "EFGraph": _sizes(ef)}
 
@@ -1100,7 +1136,7 @@ def phase_files(dev, card: str, graph, hco, hsu) -> dict:
         ef_decode_Medges_per_s=m / ef_s / 1e6,
         ef_decode_peak_bytes=ef_peak, ef_resident_bytes=resident,
         ef_plan_s=ef_plan_s, ef_resident_decode_s=min(ef_steady_s),
-        ef_profile=ef_profile, equal_to_slice=True)
+        ef_kernel=ef_kernel, equal_to_slice=True)
 
 
 def _props_lines(path: str) -> list:
@@ -3054,7 +3090,7 @@ def main() -> int:
     emit("slice", res)
     torch.cuda.empty_cache()
     emit("bench", phase_bench(dev, card, res))
-    files = phase_files(dev, card, **ctx)
+    files = phase_files(dev, card, **ctx, errors=errors)
     emit("files", files)
     t0 = time.perf_counter()
     enc = phase_encode(dev, card, **ctx)
@@ -3069,10 +3105,15 @@ def main() -> int:
     del ctx
     torch.cuda.empty_cache()
     emit("big", phase_big(dev, card))
+    ef = files["ef_kernel"]
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),
              "compact_runs": (res["compact_ms"], res["compact_plain_ms"]),
              "hyperball_merge": (res["hyperball_merge"]["dense"]["ms"],
-                                 res["hyperball_merge"]["dense"]["plain_ms"])}
+                                 res["hyperball_merge"]["dense"]["plain_ms"]),
+             "ef_decode": (ef["ms"], ef["plain_ms"])}
+    res["launches"]["ef_decode"] = ef["launches"]
+    res["bounds"]["ef_decode"] = ef["bound"]
+    res["library_ms"]["ef_decode"] = None
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"], launches=res["launches"][k],
                     max_abs_err=errors.err[k], ms=times[k][0],

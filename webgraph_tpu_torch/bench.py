@@ -232,8 +232,9 @@ def bench_graph(bv, data, target_arcs, *, device, oracle=None):
 
 def bench_ef(bv, hco, hsu, *, device):
     """EFGraph on-device decode of the same graph: ``EFGraph.store`` of its
-    CSR, loaded back, then ``EFDevicePlan.decode`` (torch ops), median of
-    3 decodes of the resident stream, held equal to (hco, hsu)."""
+    CSR, loaded back, then ``EFDevicePlan.decode`` (the kernel on the card,
+    the plain twin on the CPU), median of 3 decodes of the resident stream,
+    held equal to (hco, hsu)."""
     from .codecs.efgraph import EFGraph
     from .ops.efdecode import EFDevicePlan
 

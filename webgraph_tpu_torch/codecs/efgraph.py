@@ -597,7 +597,8 @@ class EFGraph(ImmutableGraph):
         """The whole graph as a ``CSRGraph`` on ``device`` (the GPU when
         None; the CPU only when named), decoded there by
         ``ops/efdecode.EFDevicePlan``.  The result's ``report`` holds the
-        route ("torch") and ``ef_decode_s``."""
+        route ("cuda": the kernel ``ef_decode``; "torch": the plain twin
+        on the CPU) and ``ef_decode_s``."""
         from ..ops.efdecode import EFDevicePlan
 
         dev = require_cuda() if device is None else torch.device(device)
@@ -611,7 +612,8 @@ class EFGraph(ImmutableGraph):
         del plan
         g = CSRGraph(co, su, num_nodes=self._n, device=dev)
         sync(dev)
-        g.report = dict(format="EFGraph", route="torch",
+        g.report = dict(format="EFGraph",
+                        route="cuda" if dev.type == "cuda" else "torch",
                         ef_decode_s=time.perf_counter() - t0)
         return g
 

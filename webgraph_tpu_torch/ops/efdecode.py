@@ -1,34 +1,54 @@
-"""EFGraph decode on a device: torch ops, every node and arc at once.
+"""EFGraph decode on a device: every node and arc at once.
 
 Counterpart of ``webgraph_tpu/ops/efdecode.py`` (``EFDevicePlan`` ``:152``,
 ``ef_decode_to_csr`` ``:188``), by another design.  The JAX program expands
 the stream to one int32 per bit and takes a cumulative sum over it to rank
 the ones (``:118-125``), which needs 4 bytes of device memory per stream
-bit and fewer than 2^31 bits.  Here the ones are ranked per 64-bit word
-(EFGraph.java:1081-1160 selects the same way):
+bit and fewer than 2^31 bits.  Here a decode takes one of two routes, by
+the plan's device:
 
-1. every node's gamma-coded outdegree at its offset (LSB-first longwords,
-   the unary part as trailing zeros), and from it the closed-form layout of
-   its entry: l, pointer size and pointer count (EFGraph.java:140-168), so
-   the bases of its lower and upper bits;
-2. per-word popcounts and their exclusive cumulative sum, the rank of the
-   first bit of each word;
-3. node x's upper-bits region holds its d+1 ones with no one of another
-   region between them, so its j-th successor's one is the global
-   ``(rank(up_base[x]) + j)``-th one of the stream: no masking is needed.
-   A ``searchsorted`` over the word ranks finds its word, a select within
-   the word its bit;
-4. value = (one position - up_base - j) << l | the j-th l-bit lower field.
+- **on the card**, one launch of the hand-written kernel ``ef_decode``
+  (``csrc/ef_decode.cu``, counted in ``_build.LAUNCHES["ef_decode"]``):
+  each node's layout, the select of each successor's one among its list's
+  own upper words and its lower field stay on chip (in registers, and in a
+  shared-memory copy of each warp's slice of the stream), and each
+  successor is written once to its CSR position.  A list of more than
+  ``HUB_ARCS`` arcs is cut at its skip pointers into segments of about
+  ``HUB_ARCS`` arcs, one warp each (the plan's ``segments``, listed once
+  from the outdegrees).  Nothing is read back to the host and nothing is
+  allocated beyond the successors;
+- **on the CPU**, :meth:`EFDevicePlan.decode_plain`, the plain twin the
+  card's tests hold the kernel to: torch ops that rank the ones per 64-bit
+  word (EFGraph.java:1081-1160 selects the same way):
 
-Per-arc work runs in chunks of whole nodes of about ``CHUNK_ARCS`` arcs, so
-the temporaries stay a few GB at hundreds of millions of arcs.  Device
-memory beyond the CSR: the stream, one int64 rank per stream word, and six
-int64 per node.
+  1. every node's closed-form layout from its outdegree: l, pointer size
+     and pointer count (EFGraph.java:140-168), so the bases of its lower
+     and upper bits;
+  2. per-word popcounts and their exclusive cumulative sum, the rank of
+     the first bit of each word;
+  3. node x's upper-bits region holds its d+1 ones with no one of another
+     region between them, so its j-th successor's one is the global
+     ``(rank(up_base[x]) + j)``-th one of the stream: no masking is needed.
+     A ``searchsorted`` over the word ranks finds its word, a select within
+     the word its bit;
+  4. value = (one position - up_base - j) << l | the j-th l-bit lower
+     field.
+
+  Per-arc work runs in chunks of whole nodes of about ``CHUNK_ARCS`` arcs,
+  so the temporaries stay a few GB at hundreds of millions of arcs: one
+  int64 rank per stream word, and six int64 per node.
+
+The plan (both routes) reads every node's gamma-coded outdegree at its
+offset (LSB-first longwords, the unary part as trailing zeros) and holds
+the stream, the offsets, the CSR's offsets and the kernel's segments on
+the device.
 
 Spans (``utils/trace.py``): ``wg.ef.plan`` > ``.upload``, ``.outdegrees``
-for the plan; ``wg.ef.decode`` > ``.layout``, ``.ranks``, ``.chunks`` (the
-chunk bounds' readback), ``.select`` (a chunk's per-arc work) for each
-decode, which counts ``ef.arcs`` and ``ef.chunks``.
+for the plan; each decode ``wg.ef.decode``, which counts ``ef.arcs``.  On
+the card it holds one child, ``.kernel`` (the launch), and counts
+``ef.kernel_arcs``; the plain twin's children are ``.layout``, ``.ranks``,
+``.chunks`` (the chunk bounds' readback) and ``.select`` (a chunk's per-arc
+work), and it counts ``ef.chunks``.
 """
 
 from __future__ import annotations
@@ -39,11 +59,15 @@ import numpy as np
 import torch
 
 from ..utils.trace import count, span
+from . import _build
 from .ef_index import bits_at, low_rank, popcount64, select_in_word
 
-__all__ = ["EFDevicePlan", "ef_decode_to_csr", "CHUNK_ARCS"]
+__all__ = ["EFDevicePlan", "ef_decode_to_csr", "CHUNK_ARCS", "HUB_ARCS"]
 
 CHUNK_ARCS = 1 << 24
+# the kernel decodes a list of more than HUB_ARCS arcs in segments of about
+# as many, one warp each, cut at the list's skip pointers
+HUB_ARCS = 512
 _WORD_CHUNK = 1 << 24
 
 
@@ -65,8 +89,10 @@ def read_gamma(w32: torch.Tensor, pos: torch.Tensor):
 
 class EFDevicePlan:
     """The stream and the per-node offsets on ``device``: uploaded once,
-    with the outdegrees read there and one readback (the arc count).
-    :meth:`decode` runs the whole decode on that device."""
+    with the outdegrees read there, the kernel's segments listed from them,
+    and one readback (the arcs and the segments).
+    :meth:`decode` runs the whole decode on that device: the kernel on a
+    CUDA device, :meth:`decode_plain` on the CPU."""
 
     def __init__(self, words64: np.ndarray, offsets: np.ndarray,
                  upper_bound: int, log2_quantum: int, *, device):
@@ -94,16 +120,44 @@ class EFDevicePlan:
                 self.csr_off = torch.zeros(self.n + 1, dtype=torch.int64,
                                            device=self.device)
                 torch.cumsum(self.d, 0, out=self.csr_off[1:])
-                self.m = int(self.csr_off[-1])
+                per_list = self._segments_per_list()
+                self.m, k = torch.stack([self.csr_off[-1],
+                                         per_list.sum()]).tolist()
+                self.segments = self._segments(per_list, k)
+                # the kernel's arguments bar the successors and the stream
+                self._fixed = (self.words.data_ptr(), self.nwords,
+                               self.starts.data_ptr(), self.csr_off.data_ptr(),
+                               self.n, self.upper_bound, self.log2_quantum,
+                               HUB_ARCS, self.segments.data_ptr(), k)
+
+    def _segments_per_list(self) -> torch.Tensor:
+        """int64[n]: the kernel's segments of each list, none for a list of
+        at most HUB_ARCS arcs, else ceil(d / HUB_ARCS), but at most one
+        more than its skip pointers (EFGraph.java:140-168)."""
+        _, _, npt = self._bits()
+        ns = torch.minimum(npt + 1, (self.d + HUB_ARCS - 1) // HUB_ARCS)
+        return torch.where(self.d > HUB_ARCS, ns, 0)
+
+    def _segments(self, per_list: torch.Tensor, k: int) -> torch.Tensor:
+        """int64[k][2], segment s of node x's ns: (x, (s << 32) | ns)."""
+        x = torch.repeat_interleave(
+            torch.arange(self.n, device=self.device), per_list,
+            output_size=k)
+        s = (torch.arange(k, device=self.device)
+             - (torch.cumsum(per_list, 0) - per_list)[x])
+        return torch.stack([x, (s << 32) | per_list[x]], 1).contiguous()
+
+    def _bits(self):
+        """(l, u >> l, skip pointers) per node (EFGraph.java:140-168)."""
+        l = (_bit_length(self.upper_bound // (self.d + 1)) - 1).clamp(min=0)
+        shifted = torch.full_like(l, self.upper_bound) >> l
+        return l, shifted, shifted >> self.log2_quantum
 
     def _layout(self):
         """(l, low_base, up_base) per node (EFGraph.java:140-168)."""
-        u = self.upper_bound
         cl = self.d + 1
-        l = (_bit_length(u // cl) - 1).clamp(min=0)
-        shifted = torch.full_like(l, u) >> l
+        l, shifted, npointers = self._bits()
         psize = _bit_length(cl + shifted - 1)          # ceil(log2(cl + s))
-        npointers = shifted >> self.log2_quantum
         low_base = self.starts + self.adv + npointers * psize
         return l, low_base, low_base + cl * l
 
@@ -126,7 +180,28 @@ class EFDevicePlan:
 
     def decode(self, chunk_arcs: int = CHUNK_ARCS
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (csr_off int64[n+1], succ int32[m]), both on the device."""
+        """-> (csr_off int64[n+1], succ int32[m]), both on the device.  On a
+        CUDA device one launch of ``ef_decode`` (``chunk_arcs`` bounds
+        nothing there); elsewhere :meth:`decode_plain`."""
+        if self.device.type != "cuda":
+            return self.decode_plain(chunk_arcs)
+        with span("ef.decode"):
+            succ = self.csr_off.new_empty(self.m, dtype=torch.int32)
+            count("ef.arcs", self.m)
+            count("ef.kernel_arcs", self.m)
+            if self.m:
+                with span("ef.decode.kernel"):
+                    rc = _build.lib().wg_ef_decode(
+                        *self._fixed, succ.data_ptr(), _build.stream_ptr(succ))
+                    _build.check(rc, "ef_decode")
+                    _build.LAUNCHES["ef_decode"] += 1
+            return self.csr_off, succ
+
+    def decode_plain(self, chunk_arcs: int = CHUNK_ARCS
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The plain twin of the kernel, torch ops on the plan's device:
+        (csr_off int64[n+1], succ int32[m]), per-arc work in chunks of
+        whole nodes of about ``chunk_arcs`` arcs."""
         with span("ef.decode"):
             dev = self.device
             succ = torch.empty(self.m, dtype=torch.int32, device=dev)
