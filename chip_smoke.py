@@ -48,21 +48,13 @@ Phases, each printing one line:
    kernel (a gather and ``scatter_reduce_`` over a prebuilt source index)
    timed and held equal; and the CSR bit-exact against the native
    sequential decoder;
-6. bench: the port's benchmark entry, ``python -m webgraph_tpu_torch.bench``,
-   in a process of its own, twice.  First on a stand-in for cnr-2000 (a
-   325,557-node synthetic stored single-stream with cnr-2000's settings,
-   w=7 maxref=3 minInterval=3 zeta_3) and the slice's synthetic (its
-   cache): its last line must hold the four headline keys, every row must
-   be bit-exact, the device encode byte-identical, no arc decoded on the
-   host, B1 and B2 launched by every decode, and the headline within 2x of
-   the slice's ``decode_Medges_per_s`` (a check on the protocol, not a
-   claim).  Then on a 1,000,000-node synthetic whose nodes 0, 250,000,
-   500,000 and 750,000 hold seeded-random lists of 131,072 to 786,432
-   successors: the same checks, and the graph planned here as the bench
-   plans it, each hub's lane launched alone, the whole B1 pass and the
-   pass without the hub lanes timed by CUDA events (the temporary
-   directory is ``.bench_smoke_*/`` under the checkout, removed at the
-   end);
+6. hubs: a 1,000,000-node synthetic whose nodes 0, 250,000, 500,000 and
+   750,000 hold seeded-random lists of 131,072 to 786,432 successors,
+   stored single-stream in ``.hubs_smoke_*/`` under the checkout (removed
+   at the end), planned cold and decoded to a CSR held equal to the graph;
+   then each hub's lane launched alone, the whole B1 pass and the pass
+   without the hub lanes timed by CUDA events: the share of B1's pass the
+   hub lanes take (``hub_share``);
 7. files: the slice's device CSR is written to a BVGraph basename in a
    temporary directory under the checkout (``BVGraph.store``, the native
    encoder), read back to the card with ``load_csr(basename)`` -- the
@@ -270,8 +262,8 @@ CENTRALITY_CHECKED = 4
 # the encode phase's offline transforms and the cli phase's text formats: a
 # smaller graph cut into this many batches or more; the files phase's
 # comparison of the EF numpy store (on the host, ~100 s at the slice) with
-# the device store runs at OFFLINE_NODES too, so that the whole script, the
-# bench phase included, stays inside its time limit
+# the device store runs at OFFLINE_NODES too, so that the whole script
+# stays inside its time limit
 OFFLINE_NODES = 500_000
 OFFLINE_BATCHES = 5
 # the labels phase: the geometric distribution of the gamma-coded labels
@@ -544,7 +536,7 @@ def phase_probes(dev, errors: Errors) -> dict:
 
 def synth_input(n_nodes: int):
     """The encoded synthetic graph, cached in .bench_synth_<N>.npz (the
-    format bench_synth.py writes)."""
+    format the root ``bench_synth.py`` writes)."""
     settings = BVGraphSettings()
     cache = os.path.join(ROOT, f".bench_synth_{n_nodes}.npz")
     t0 = time.perf_counter()
@@ -818,21 +810,14 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
         bit_exact=True)
 
 
-# ---- the bench phase: the port's benchmark entry ------------------------
+# ---- the hubs phase: B1's lanes on a graph with hub nodes ---------------
 
-# cnr-2000 (the JAX bench's fixture, bench.py:3-4): its node count and
-# settings, for the stand-in the bench decodes in its place
-CNR_NODES = 325_557
-CNR_SETTINGS = BVGraphSettings(window_size=7, max_ref_count=3,
-                               min_interval_length=3, zeta_k=3)
-# the graph with hub nodes: a synthetic whose nodes HUB_IDS get sorted,
-# distinct, seeded-random lists of HUB_DEGREES successors
+# a synthetic whose nodes HUB_IDS get sorted, distinct, seeded-random lists
+# of HUB_DEGREES successors
 HUB_NODES = 1_000_000
 HUB_IDS = (0, 250_000, 500_000, 750_000)
 HUB_DEGREES = (131_072, 262_144, 524_288, 786_432)
 HUB_SEED = 13
-BENCH_TIMEOUT_S = 600
-BENCH_KEYS = ["metric", "unit", "value", "vs_baseline"]
 
 
 def hub_graph(n: int, ids, degrees, seed: int) -> tuple:
@@ -854,55 +839,22 @@ def hub_graph(n: int, ids, degrees, seed: int) -> tuple:
     return out, np.concatenate(parts).astype(np.int64)
 
 
-def _store_single_stream(co, su, base: str, settings) -> None:
+def _store_single_stream(co, su, base: str) -> None:
     """Store (co, su) as a BVGraph basename in one stream (one thread), so
-    the bench's device encode can be held byte-identical to it."""
+    that its lanes depend on the graph alone and not on the host's
+    threads."""
     n = len(co) - 1
     if int(su.max(initial=-1)) >= n or (np.diff(su) <= 0)[
             np.diff(np.repeat(np.arange(n), np.diff(co))) == 0].any():
         raise AssertionError("a stored list is not ascending below n")
-    BVGraph.store(CSRGraph(co, su, device="cpu"), base, settings=settings,
-                  num_threads=1)
-
-
-def _run_bench(basename: str, synth_nodes: int, extra: str) -> dict:
-    """``python -m webgraph_tpu_torch.bench`` in a process of its own on
-    the card: its headline, its rows (each checked: no error, no skip,
-    bit-exact, byte-identical, no arc decoded on the host, B1 and B2
-    launched by every decode) and its wall seconds."""
-    env = dict(os.environ, BENCH_SYNTH_NODES=str(synth_nodes))
-    t0 = time.perf_counter()
-    sp = subprocess.run([sys.executable, "-m", "webgraph_tpu_torch.bench",
-                         "--basename", basename, "--extra-out", extra],
-                        cwd=ROOT, env=env, capture_output=True, text=True,
-                        timeout=BENCH_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    if sp.returncode != 0:
-        raise AssertionError(f"python -m webgraph_tpu_torch.bench exited "
-                             f"{sp.returncode}: {sp.stderr[-3000:]}")
-    head = json.loads(sp.stdout.strip().splitlines()[-1])
-    if sorted(head) != BENCH_KEYS:
-        raise AssertionError(f"the bench's last line is {head}")
-    with open(extra) as f:
-        rows = json.load(f)
-    for key, row in rows.items():
-        bad = [w for w in ("error", "skipped") if w in row]
-        bad += [w for w in ("bit_exact", "byte_identical")
-                if row.get(w, True) is not True]
-        if row.get("fallback_arc_frac", 0) != 0:
-            bad.append("fallback_arc_frac")
-        if "spec" in row:
-            bad += [k for k in DECODE_KERNELS if row["launches"][k] <= 0]
-        if bad:
-            raise AssertionError(f"bench row {key}: {bad}: {row}")
-    return dict(headline=head, rows=rows, wall_s=wall)
+    BVGraph.store(CSRGraph(co, su, device="cpu"), base, num_threads=1)
 
 
 def _hub_lanes(dev, basename: str, co, su) -> dict:
-    """The hub graph planned here as the bench plans it: each hub's lane
-    launched alone (CUDA events), the whole B1 pass and the pass without
-    the hub lanes, the decode held equal to (co, su).  ``hub_share``: the
-    part of the whole pass the hub lanes add, 1 - rest / whole."""
+    """The hub graph planned cold and decoded, held equal to (co, su);
+    each hub's lane launched alone (CUDA events), the whole B1 pass and
+    the pass without the hub lanes.  ``hub_share``: the part of the whole
+    pass the hub lanes add, 1 - rest / whole."""
     bv = BVGraph.load(basename)
     data = np.asarray(bv.data)
     outd = native.decode_outdegrees(data, bv.offsets,
@@ -953,40 +905,19 @@ def _hub_lanes(dev, basename: str, co, su) -> dict:
     return out
 
 
-def phase_bench(dev, card: str, slice_res: dict) -> dict:
-    """``python -m webgraph_tpu_torch.bench`` twice, each in a process of its
-    own: on a stand-in for cnr-2000 with the uk-2002-scale synthetic (the
-    slice's cache), then on a graph with hub nodes alone; the hub graph's
-    lanes timed here.  The directory is removed at the end."""
-    out = dict(card=card)
+def phase_hubs(dev, card: str) -> dict:
+    """The graph with hub nodes stored, decoded and its lanes timed.  The
+    directory is removed at the end."""
+    out = dict(card=card, nodes=HUB_NODES)
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix=".bench_smoke_", dir=ROOT)
+    tmp = tempfile.mkdtemp(prefix=".hubs_smoke_", dir=ROOT)
     try:
-        # 1. cnr-2000's node count and settings, and the synthetic
-        standin = os.path.join(tmp, "cnr2000_standin")
-        t0 = time.perf_counter()
-        _store_single_stream(*synthesize_webgraph(CNR_NODES), standin,
-                             CNR_SETTINGS)
-        out["standin_store_s"] = time.perf_counter() - t0
-        run = _run_bench(standin, SLICE_NODES, os.path.join(tmp, "a.json"))
-        got = run["headline"]
-        want = slice_res["decode_Medges_per_s"]
-        if (got["metric"] != "bvgraph_cold_decode_uk2002scale_edges_per_sec"
-                or not want / 2 <= got["value"] <= want * 2):
-            raise AssertionError(f"the bench's headline {got} is not within "
-                                 f"2x of the slice's {want} Medges/s")
-        out["standin"] = run
-        out["headline_over_slice"] = got["value"] / want
-
-        # 2. the graph with hub nodes
         hub = os.path.join(tmp, "hubs")
         t0 = time.perf_counter()
         co, su = hub_graph(HUB_NODES, HUB_IDS, HUB_DEGREES, HUB_SEED)
-        _store_single_stream(co, su, hub, BVGraphSettings())
-        out["hub_store_s"] = time.perf_counter() - t0
-        out["hub"] = _run_bench(hub, 0, os.path.join(tmp, "b.json"))
-        out["hub"]["lanes"] = _hub_lanes(dev, hub, co, su)
-        out["hub"].update(nodes=HUB_NODES, arcs=int(co[-1]))
+        _store_single_stream(co, su, hub)
+        out.update(arcs=int(co[-1]), store_s=time.perf_counter() - t0,
+                   lanes=_hub_lanes(dev, hub, co, su))
         del co, su
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3089,7 +3020,7 @@ def main() -> int:
     res.update(input_made=input_src, input_made_s=input_made_s)
     emit("slice", res)
     torch.cuda.empty_cache()
-    emit("bench", phase_bench(dev, card, res))
+    emit("hubs", phase_hubs(dev, card))
     files = phase_files(dev, card, **ctx, errors=errors)
     emit("files", files)
     t0 = time.perf_counter()

@@ -11,7 +11,8 @@ generator, every slice on the kernel route with no lane decoded on the
 host.  The full size (2^31 + 2^21 nodes, as the JAX test) runs with
 ``WEBGRAPH_BIG=1 pytest -m slow tests/test_torch_big.py``: about an hour,
 since the streaming store is one host thread, in bounded memory (one
-slice at a time).
+slice at a time).  And ``chip_smoke.hub_graph``, the graph of its
+``hubs`` phase, replaces only its hubs' lists.
 """
 
 import os
@@ -25,6 +26,7 @@ from webgraph_tpu_torch.codecs.bvgraph import BVGraph
 from webgraph_tpu_torch.ops.bigdecode import decode_big_slices
 from webgraph_tpu_torch.parallel.multihost import encode_shard, merge_shards
 from webgraph_tpu_torch.settings import BVGraphSettings
+from webgraph_tpu_torch.utils.synth import synthesize_webgraph
 
 from .torch_big_graph import WebLikeGraph
 
@@ -209,3 +211,23 @@ def test_biggraph_over_2_31(tmp_path):
         assert np.array_equal(co, eco) and np.array_equal(su, esu)
         checked = hi
     assert checked == n
+
+
+def test_hub_graph_replaces_only_the_hubs_lists():
+    import chip_smoke
+    n, ids, degrees = 5000, (0, 1200, 4999), (300, 4000, 2500)
+    co, su = chip_smoke.hub_graph(n, ids, degrees, seed=2)
+    bco, bsu = synthesize_webgraph(n)
+    assert len(co) == n + 1 and co[-1] == len(su)
+    deg, bdeg = np.diff(co), np.diff(bco)
+    others = np.setdiff1d(np.arange(n), ids)
+    np.testing.assert_array_equal(deg[others], bdeg[others])
+    for x in others[::97]:
+        np.testing.assert_array_equal(su[co[x]:co[x + 1]],
+                                      bsu[bco[x]:bco[x + 1]])
+    for x, d in zip(ids, degrees):
+        lst = su[co[x]:co[x + 1]]
+        assert len(lst) == d and (np.diff(lst) > 0).all()
+        assert 0 <= lst[0] and lst[-1] < n
+    again = chip_smoke.hub_graph(n, ids, degrees, seed=2)
+    np.testing.assert_array_equal(again[1], su)

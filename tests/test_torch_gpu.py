@@ -971,43 +971,3 @@ def test_sliced_decode_past_a_range_store_on_card(cuda, tmp_path):
     assert x == n and len(rep) >= 3
     assert all(r["route"] == "kernel" and r["fallback_arcs"] == 0
                for r in rep)
-
-
-def test_bench_main_on_card(cuda, tmp_path, monkeypatch, capsys):
-    """``python -m webgraph_tpu_torch.bench``'s ``main`` on the card at
-    20,000 nodes: a basename stored single-stream with cnr-2000's settings
-    and the synthetic (cached in the test's directory).  Every row
-    bit-exact (the device encode byte-identical), no arc decoded on the
-    host, B1 and B2 launched by both decodes, the headline's four keys."""
-    import functools
-    import json
-    from webgraph_tpu_torch import bench as PB
-    from webgraph_tpu_torch import bench_synth as PS
-    from webgraph_tpu_torch.codecs.bvgraph import BVGraph
-    from webgraph_tpu_torch.core.graph import CSRGraph
-    n = 20_000
-    co, su = E.simple(*synthesize_webgraph(n, seed=4))
-    base = str(tmp_path / "g")
-    BVGraph.store(CSRGraph(co, su, device="cpu"), base,
-                  settings=BVGraphSettings(window_size=7, max_ref_count=3,
-                                           min_interval_length=3, zeta_k=3),
-                  num_threads=1)
-    monkeypatch.setenv("BENCH_SYNTH_NODES", str(n))
-    monkeypatch.setattr(PS, "bench_synth", functools.partial(
-        PS.bench_synth, cache_dir=str(tmp_path)))
-    extra = tmp_path / "x.json"
-    rc = PB.main(["--basename", base, "--extra-out", str(extra)])
-    head = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    rows = json.loads(extra.read_text())
-    assert rc == 0, rows
-    assert set(head) == {"metric", "value", "unit", "vs_baseline"}
-    assert head["metric"] == "bvgraph_cold_decode_uk2002scale_edges_per_sec"
-    for key in ("g", "synthetic"):
-        r = rows[key]
-        assert r["bit_exact"] is True and r["fallback_arc_frac"] == 0
-        assert r["device"] == "cuda:0" and r["decode_ms"] > 0
-        assert all(r["launches"][k] > 0
-                   for k in ("bv_decode_lanes", "compact_runs"))
-        assert r["card"] and r["cuda"]
-    assert rows["g_device_encode"]["byte_identical"] is True
-    assert rows["g_ef"]["bit_exact"] is True

@@ -78,7 +78,7 @@ def test_importing_the_port_loads_no_jax():
         "from webgraph_tpu_torch.utils import stats\n"
         "from webgraph_tpu_torch import native, settings\n"
         "from webgraph_tpu_torch.utils import synth\n"
-        "from webgraph_tpu_torch.tools import b1_sweep, b2_sweep\n"
+        "from webgraph_tpu_torch.tools import b1_sweep, hb_sweep\n"
         "from webgraph_tpu_torch.codecs import ascii, intlist, scattered\n"
         "from webgraph_tpu_torch.core import incremental, wrap, wrappers\n"
         "from webgraph_tpu_torch.utils import hostmap, progress\n"

@@ -2,18 +2,18 @@
 against its plain PyTorch twin.
 
 The per-tile arithmetic of the kernel (tile span, run slice, each vector's
-run and source, the head and tail splits at run and chunk boundaries, the
-aligned source windows and their shifts, the staging layout of the bulk-
-copy variant) is in functions that compile for host and device alike.
-Under ``WG_HOST_BUILD`` the source builds with g++ alone, and
+run and source, the head and tail splits at run and chunk boundaries) is
+in functions that compile for host and device alike.  Under
+``WG_HOST_BUILD`` the source builds with g++ alone, and
 ``wg_compact_runs_host`` runs those functions tile by tile and thread by
 thread as the kernel's blocks do.  Built with the shipped macros and with
-small tiles, few threads and a small run slice (so that chunks, several
-rounds of K vectors and the position-by-position path all occur), it
-rebuilds the CSR exactly as ``compact_plain`` does on every valid position,
-writes no position of an invalid run, and reads nothing outside the store.
-What only the card can show (the CUDA build, the launch, the bulk copies,
-timing) is left to ``test_torch_gpu.py`` and ``chip_smoke.py``.
+other tiles, threads, K and run slices (down to one run a chunk and one
+vector a round, so that chunks, several rounds of K vectors and the
+position-by-position path all occur), it rebuilds the CSR exactly as
+``compact_plain`` does on every valid position, writes no position of an
+invalid run, and reads nothing outside the store.  What only the card can
+show (the CUDA build, the launch, timing) is left to ``test_torch_gpu.py``
+and ``chip_smoke.py``.
 """
 
 import ctypes
@@ -39,14 +39,17 @@ SENTINEL = -123456789
 # name: macros; the tile each variant takes is its WG_B2_TILE (default TILE)
 VARIANTS = {
     "shipped": {},
-    "shipped_tma": {"WG_B2_TMA": 1},
-    "shipped_load1_k8": {"WG_B2_LOAD": 1, "WG_B2_K": 8},
-    "small_load1": {"WG_B2_TILE": 512, "WG_B2_THREADS": 32, "WG_B2_K": 3,
-                    "WG_B2_CAP": 4},
-    "small_load0": {"WG_B2_TILE": 256, "WG_B2_THREADS": 32, "WG_B2_K": 2,
-                    "WG_B2_CAP": 5, "WG_B2_LOAD": 0},
-    "small_tma": {"WG_B2_TILE": 512, "WG_B2_THREADS": 32, "WG_B2_K": 3,
-                  "WG_B2_CAP": 6, "WG_B2_TMA": 1},
+    "shipped_k8": {"WG_B2_K": 8},
+    "small_k3_cap4": {"WG_B2_TILE": 512, "WG_B2_THREADS": 32, "WG_B2_K": 3,
+                      "WG_B2_CAP": 4},
+    "small_k2_cap5": {"WG_B2_TILE": 256, "WG_B2_THREADS": 32, "WG_B2_K": 2,
+                      "WG_B2_CAP": 5},
+    # every run a chunk of its own, one vector a round
+    "small_k1_cap1": {"WG_B2_TILE": 256, "WG_B2_THREADS": 32, "WG_B2_K": 1,
+                      "WG_B2_CAP": 1},
+    "mid_t64_cap16": {"WG_B2_TILE": 1024, "WG_B2_THREADS": 64, "WG_B2_K": 4,
+                      "WG_B2_CAP": 16},
+    "tile4096": {"WG_B2_TILE": 4096},
 }
 
 
