@@ -9,8 +9,9 @@ rank processes and over listed devices, then the analytics over it
 (HyperBall to convergence, BFS, connected and strongly connected
 components, geometric centrality, statistics) -- at uk-2002
 scale (18.5M nodes, ~355M arcs of a synthetic web graph), holding the
-main path's hand-written CUDA kernels (B1, B2, HyperBall's merge and
-the EF decode) against their plain PyTorch versions on the card; and the
+main path's hand-written CUDA kernels (B1 in its two builds, the split
+lists' merge, B2, HyperBall's merge and the EF decode) against their plain
+PyTorch versions on the card; and the
 probe path -- every probe of the JAX package's ``experiments/`` ported to
 a CUDA kernel in ``webgraph_tpu_torch/experiments/`` -- at the probes'
 own shapes.
@@ -51,10 +52,17 @@ Phases, each printing one line:
 6. hubs: a 1,000,000-node synthetic whose nodes 0, 250,000, 500,000 and
    750,000 hold seeded-random lists of 131,072 to 786,432 successors,
    stored single-stream in ``.hubs_smoke_*/`` under the checkout (removed
-   at the end), planned cold and decoded to a CSR held equal to the graph;
-   then each hub's lane launched alone, the whole B1 pass and the pass
-   without the hub lanes timed by CUDA events: the share of B1's pass the
-   hub lanes take (``hub_share``);
+   at the end), planned cold (each hub list split across preset lanes)
+   and decoded to a CSR held equal to the graph; then the slowest lane and
+   each hub's lanes launched alone, the whole B1 pass and the pass without
+   the hubs' lanes timed by CUDA events: the share of B1's pass the hubs'
+   lanes take (``hub_share``); then Graph500's scale-24 Kronecker graph
+   (``benchmark/configs/graph500-s24.json``, the benchmark's generator, at
+   ``GRAPH500_SEED``), encoded on the card, planned cold (thousands of
+   lists split) and decoded to a CSR held equal to it with launch counts
+   reset just before (one launch of B1's split build, two of the merge,
+   one of B2), B1's split build held against ``decode_lanes_plain`` and
+   the merge against ``merge_split_plain``, each timed beside its bound;
 7. files: the slice's device CSR is written to a BVGraph basename in a
    temporary directory under the checkout (``BVGraph.store``, the native
    encoder), read back to the card with ``load_csr(basename)`` -- the
@@ -164,10 +172,11 @@ Phases, each printing one line:
    to the generator on the kernel route -- then the whole basename through
    ``load_csr``, equal to the generator or raising before any launch.
 
-Then one JSON line of the kernels (the four main-path kernels and the 23
+Then one JSON line of the kernels (the six main-path kernels and the 23
 probe sites, each with its launches, times, bound and library time; the
 merge's at log2m 6 and bound by each row read once; the EF decode's at the
-slice, from the files phase), and last
+slice, from the files phase; B1's split build and the split lists' merge
+at Graph500's graph, from the hubs phase), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without a CUDA device it fails before doing anything.
 
@@ -218,6 +227,13 @@ from webgraph_tpu_torch.ops.resolve import resolve_halos  # noqa: E402
 KERNELS = {
     "bv_decode_lanes": dict(source="webgraph_tpu_torch/csrc/bv_decode.cu",
                             replaces="webgraph_tpu/ops/kdecode.py:1114"),
+    # B1 built with its preset lanes, which plans with split lists launch
+    "bv_decode_lanes_split": dict(
+        source="webgraph_tpu_torch/csrc/bv_decode_split.cu",
+        replaces="webgraph_tpu/ops/kdecode.py:1114 (its preset lanes)"),
+    "split_merge": dict(source="webgraph_tpu_torch/csrc/bv_decode.cu",
+                        replaces="none (webgraph_tpu/ops/kdecode.py:2212, "
+                        "finalize_hub, is an XLA program)"),
     "compact_runs": dict(source="webgraph_tpu_torch/csrc/compact.cu",
                          replaces="webgraph_tpu/ops/kcompact.py:125"),
     "hyperball_merge": dict(source="webgraph_tpu_torch/csrc/hyperball.cu",
@@ -384,17 +400,19 @@ def phase_build() -> dict:
     return ptxas
 
 
-def _decode_vs_plain(plan, errors: Errors, what: str):
-    """B1 on the card against its plain version, same store image.
-    A decode's output depends on the halo rows and the stream only, never
-    on what the chunk rows held before, so both start from one image.
+def _decode_vs_plain(plan, errors: Errors, what: str,
+                     name: str = "bv_decode_lanes", order=None):
+    """B1 (the build ``name``) on the card against its plain version, same
+    store image, the kernel's threads taking the lanes in ``order``.  A
+    decode's output depends on the halo rows and the stream only, never on
+    what the chunk rows held before, so both start from one image.
     Returns (kernel ms, plain ms, diag)."""
     store_p = plan.store.clone()
     out = {}
 
     def kernel():
         out["k"] = kdecode.decode_lanes(plan.words, plan.meta, plan.store,
-                                        plan.spec)
+                                        plan.spec, order)
 
     def plain():
         out["p"] = kdecode.decode_lanes_plain(plan.words, plan.meta, store_p,
@@ -402,8 +420,8 @@ def _decode_vs_plain(plan, errors: Errors, what: str):
 
     ms = cuda_ms(kernel, warmup=1)
     plain_ms = cuda_ms(plain)
-    errors.check("bv_decode_lanes", f"{what} store", plan.store, store_p)
-    errors.check("bv_decode_lanes", f"{what} diag", out["k"], out["p"])
+    errors.check(name, f"{what} store", plan.store, store_p)
+    errors.check(name, f"{what} diag", out["k"], out["p"])
     return ms, plain_ms, out["k"]
 
 
@@ -818,6 +836,11 @@ HUB_NODES = 1_000_000
 HUB_IDS = (0, 250_000, 500_000, 750_000)
 HUB_DEGREES = (131_072, 262_144, 524_288, 786_432)
 HUB_SEED = 13
+# then Graph500's scale-24 Kronecker graph (the benchmark's generator and
+# configuration), made on the card from this seed: thousands of split lists
+GRAPH500_CONFIG = os.path.join(ROOT, "benchmark", "configs",
+                               "graph500-s24.json")
+GRAPH500_SEED = 1
 
 
 def hub_graph(n: int, ids, degrees, seed: int) -> tuple:
@@ -851,40 +874,56 @@ def _store_single_stream(co, su, base: str) -> None:
 
 
 def _hub_lanes(dev, basename: str, co, su) -> dict:
-    """The hub graph planned cold and decoded, held equal to (co, su);
-    each hub's lane launched alone (CUDA events), the whole B1 pass and
-    the pass without the hub lanes.  ``hub_share``: the part of the whole
-    pass the hub lanes add, 1 - rest / whole."""
+    """The hub graph planned cold (each hub split across preset lanes,
+    ``kplan.SPLIT_ARCS``) and decoded, held equal to (co, su); the slowest
+    lane of the lane table (by B1's steps) and each hub's lanes (its head
+    lane and its preset lanes) launched alone, the whole B1 pass (with the
+    split lists' merge) and the pass without the hubs' lanes timed by CUDA
+    events.  ``hub_share``: the part of the whole pass the hubs' lanes add,
+    1 - rest / whole."""
     bv = BVGraph.load(basename)
     data = np.asarray(bv.data)
     outd = native.decode_outdegrees(data, bv.offsets,
                                     bv.settings.outdegree_coding)
     plan = kplan.plan_kernel_decode(bv.offsets, outd, bv.settings, data,
                                     device=dev)
+    sp = plan.split
+    if sp is None or sorted(sp.nodes.tolist()) != sorted(HUB_IDS):
+        raise AssertionError("the plan does not split the hub lists")
     resolve_halos(plan)
     csr_off, succ, filled = decode_to_csr(plan)
     if (filled or not np.array_equal(csr_off, co)
             or not np.array_equal(succ.cpu().numpy(), su)):
         raise AssertionError("the hub graph's decode differs from its CSR")
     del succ
+    L = plan.lanes
     lane_arcs = plan.store_off[1:] - plan.store_off[:-1] - plan.halo_arcs
     steps = kdecode.decode_chunked(plan)[:, kdecode.DIAG_STEPS].cpu().numpy()
     whole_ms = min(cuda_ms(lambda: kdecode.decode_chunked(plan))
                    for _ in range(3))
-    hub_lanes = np.searchsorted(plan.chunk_starts, HUB_IDS, side="right") - 1
+
+    def alone(rows):
+        meta = plan.meta[torch.from_numpy(np.asarray(rows)).to(dev)]
+        return cuda_ms(lambda: kdecode.decode_lanes(plan.words, meta,
+                                                    plan.store, plan.spec),
+                       warmup=1)
+    slow = int(np.argmax(steps))
     lanes = []
-    for x, d, ln in zip(HUB_IDS, HUB_DEGREES, hub_lanes.tolist()):
-        one = plan.meta[ln:ln + 1]
-        ms = cuda_ms(lambda: kdecode.decode_lanes(plan.words, one, plan.store,
-                                                  plan.spec), warmup=1)
-        lanes.append(dict(node=x, degree=d, lane=ln,
-                          lane_nodes=int(plan.exp_nodes[ln]),
-                          lane_arcs=int(lane_arcs[ln]),
-                          lane_steps=int(steps[ln]), alone_ms=ms,
-                          steps_per_us=int(steps[ln]) / (ms * 1e3)))
+    hub_rows = []
+    for x, d in zip(HUB_IDS, HUB_DEGREES):
+        head = int(sp.heads[sp.nodes == x][0])
+        pre = L + np.flatnonzero(sp.seg_head == head)
+        rows = [head, *pre.tolist()]
+        hub_rows += rows
+        lanes.append(dict(node=x, degree=d, lane=head,
+                          preset_lanes=len(pre),
+                          residuals=int(sp.res[sp.nodes == x][0]),
+                          head_steps=int(steps[head]),
+                          longest_preset_steps=int(steps[pre].max()),
+                          lanes_alone_ms=alone(rows)))
     # every other lane, in the plan's order (costliest first)
-    keep = np.ones(plan.lanes, dtype=bool)
-    keep[hub_lanes] = False
+    keep = np.ones(plan.meta.shape[0], dtype=bool)
+    keep[hub_rows] = False
     order = plan.order.cpu().numpy()
     new = np.cumsum(keep) - 1
     rest_order = torch.from_numpy(
@@ -893,21 +932,104 @@ def _hub_lanes(dev, basename: str, co, su) -> dict:
     rest_ms = min(cuda_ms(lambda: kdecode.decode_lanes(
         plan.words, rest_meta, plan.store, plan.spec, rest_order),
         warmup=1) for _ in range(3))
-    slowest = max(r["alone_ms"] for r in lanes)
-    out = dict(lanes=plan.lanes, longest_lane_arcs=int(lane_arcs.max()),
-               rest_longest_lane_arcs=int(lane_arcs[keep].max()),
-               whole_ms=whole_ms, rest_ms=rest_ms, hub_lanes=lanes,
-               slowest_hub_lane_ms=slowest,
-               slowest_hub_lane_share=slowest / whole_ms,
+    slowest_ms = alone([slow])
+    merge_ms = cuda_ms(lambda: kdecode.merge_split(sp, plan.store))
+    out = dict(lanes=L, preset_lanes=sp.segments, merged_lists=sp.merged,
+               longest_lane_arcs=int(lane_arcs.max()),
+               slowest_lane=slow, slowest_lane_is_preset=slow >= L,
+               slowest_lane_steps=int(steps[slow]),
+               slowest_lane_alone_ms=slowest_ms,
+               slowest_lane_share=slowest_ms / whole_ms,
+               whole_ms=whole_ms, merge_ms=merge_ms, rest_ms=rest_ms,
+               hubs=lanes,
                hub_share=1 - rest_ms / whole_ms)
     del plan, rest_meta, rest_order
     torch.cuda.empty_cache()
     return out
 
 
-def phase_hubs(dev, card: str) -> dict:
-    """The graph with hub nodes stored, decoded and its lanes timed.  The
-    directory is removed at the end."""
+def _graph500_split(dev, errors: Errors) -> dict:
+    """Graph500's Kronecker graph (``GRAPH500_CONFIG`` at
+    ``GRAPH500_SEED``), encoded on the card into one stream, planned cold
+    (thousands of lists split) and resolved.  One ``decode_to_csr`` with
+    the launch counts reset just before, held equal to the graph; then B1's
+    split build against ``decode_lanes_plain`` (store and diagnostics) and
+    the merge against ``merge_split_plain`` (the store after B1), each timed
+    by CUDA events beside its byte bound: B1's as the slice's, the merge's
+    16 B a merged row (read, written to the buffer, read back, written)."""
+    from benchmark.gen import kronecker
+    with open(GRAPH500_CONFIG) as f:
+        cfg = json.load(f)
+    s = BVGraphSettings(**cfg["bvgraph"])
+    t0 = time.perf_counter()
+    off, succ = kronecker.generate(cfg["params"], GRAPH500_SEED, dev)
+    stream, bits, starts, _ = vencode.encode_csr_chunked(off, succ, s)
+    offsets = np.empty(off.numel(), dtype=np.int64)
+    offsets[:-1] = starts.cpu().numpy()
+    offsets[-1] = bits
+    data = np.frombuffer(stream, dtype=np.uint8)
+    del starts, stream
+    outd = native.decode_outdegrees(data, offsets, s.outdegree_coding)
+    plan = kplan.plan_kernel_decode(offsets, outd, s, data, device=dev)
+    sp = plan.split
+    if sp is None or not sp.merged:
+        raise AssertionError("Graph500's plan splits no list to merge")
+    resolve_halos(plan)
+    made_s = time.perf_counter() - t0
+    _build.reset_launches()
+    co, got, filled = decode_to_csr(plan)
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] for k in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(bv_decode_lanes_split=1, split_merge=2, compact_runs=1)
+    if launches != want:
+        raise AssertionError(f"a Graph500 decode launched {launches}")
+    if (filled or not np.array_equal(co, off.cpu().numpy())
+            or not torch.equal(got, succ)):
+        raise AssertionError("Graph500's decode differs from its CSR")
+    m = succ.numel()
+    del got, succ, off
+    ms, plain_ms, diag = _decode_vs_plain(
+        plan, errors, "graph500", name="bv_decode_lanes_split",
+        order=plan.order)
+    if kdecode.check_diag(plan, diag).any():
+        raise AssertionError("Graph500's lanes flagged on a clean stream")
+    steps = diag[:, kdecode.DIAG_STEPS].cpu().numpy()
+    b1_bytes = (plan.words.numel() * 4 + plan.meta.numel() * 8
+                + 4 * (int(plan.halo_arcs.sum()) + m)
+                + 4 * kdecode.DIAG_ROWS * plan.meta.shape[0])
+    store_p = plan.store.clone()
+    kdecode.merge_split(sp, plan.store)
+    t0 = time.perf_counter()
+    kdecode.merge_split_plain(store_p, sp.merge_row0, sp.merge_res,
+                              sp.merge_base)
+    torch.cuda.synchronize()
+    merge_plain_ms = (time.perf_counter() - t0) * 1e3
+    errors.check("split_merge", "graph500 store", plan.store, store_p)
+    del store_p
+    # on merged rows the merge does the same searches and moves
+    merge_ms = min(cuda_ms(lambda: kdecode.merge_split(sp, plan.store),
+                           reps=5, warmup=1) for _ in range(3))
+    L = plan.lanes
+    heads = sp.heads
+    out = dict(seed=GRAPH500_SEED, nodes=len(outd), arcs=m, made_s=made_s,
+               lanes=L, split_lists=len(sp.nodes), preset_lanes=sp.segments,
+               merged_lists=sp.merged, merged_rows=sp.merge_rows,
+               launches=launches, max_lane_steps=int(steps.max()),
+               max_head_steps=int(steps[heads].max()),
+               max_preset_steps=int(steps[L:].max()),
+               b1=dict(ms=ms, plain_ms=plain_ms, bound=bound(b1_bytes)),
+               merge=dict(ms=merge_ms, plain_ms=merge_plain_ms,
+                          bound=bound(16 * sp.merge_rows)))
+    del plan, diag
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hubs(dev, card: str, errors: Errors) -> dict:
+    """The graph with hub nodes stored, decoded and its lanes timed (its
+    directory is removed at the end); then Graph500's split lists held
+    against the plain twins (``_graph500_split``)."""
     out = dict(card=card, nodes=HUB_NODES)
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix=".hubs_smoke_", dir=ROOT)
@@ -921,6 +1043,7 @@ def phase_hubs(dev, card: str) -> dict:
         del co, su
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    out["graph500"] = _graph500_split(dev, errors)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3020,7 +3143,8 @@ def main() -> int:
     res.update(input_made=input_src, input_made_s=input_made_s)
     emit("slice", res)
     torch.cuda.empty_cache()
-    emit("hubs", phase_hubs(dev, card))
+    hubs = phase_hubs(dev, card, errors)
+    emit("hubs", hubs)
     files = phase_files(dev, card, **ctx, errors=errors)
     emit("files", files)
     t0 = time.perf_counter()
@@ -3037,7 +3161,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("big", phase_big(dev, card))
     ef = files["ef_kernel"]
+    g500 = hubs["graph500"]
+    for k, part in (("bv_decode_lanes_split", "b1"),
+                    ("split_merge", "merge")):
+        res["launches"][k] = g500["launches"][k]
+        res["bounds"][k] = g500[part]["bound"]
+        res["library_ms"][k] = None
     times = {"bv_decode_lanes": (res["decode_ms"], res["decode_plain_ms"]),
+             "bv_decode_lanes_split": (g500["b1"]["ms"],
+                                       g500["b1"]["plain_ms"]),
+             "split_merge": (g500["merge"]["ms"], g500["merge"]["plain_ms"]),
              "compact_runs": (res["compact_ms"], res["compact_plain_ms"]),
              "hyperball_merge": (res["hyperball_merge"]["dense"]["ms"],
                                  res["hyperball_merge"]["dense"]["plain_ms"]),

@@ -251,3 +251,53 @@ def test_hub_chain_ending_in_intervals(tmp_path):
     want = jcore.load(base).to_csr()
     np.testing.assert_array_equal(want.offsets, hco)
     np.testing.assert_array_equal(want.succ, hsu)
+
+
+def test_split_lists_sliced_and_loaded(tmp_path, monkeypatch):
+    """Lists over ``kplan.SPLIT_ARCS``, split across preset lanes at the
+    plan's default thresholds by ``load_csr``'s cold plan and by the warm
+    sliced plans of ``decode_big_slices`` (``node_base`` > 0): both equal
+    the native decode, and each path's plans split every such list once
+    (a spy on ``kplan._split_lists`` records the outdegrees it splits).
+    The web lists sit on the first 4,000 of 40,000 nodes, so that the hubs'
+    residual gaps are sparse and the plain decode stays short."""
+    from webgraph_tpu_torch.core.graph import CSRGraph
+    from webgraph_tpu_torch.ops import kplan
+    found = []
+    split_lists = kplan._split_lists
+
+    def spy(*a, **kw):     # records the outdegrees of the lists split
+        hub = split_lists(*a, **kw)
+        if hub is not None:
+            found.extend(a[3][hub[0]].tolist())
+        return hub
+    monkeypatch.setattr(kplan, "_split_lists", spy)
+    n0, n = 4000, 40000
+    co, su = _web(n0, seed=3)
+    rng = np.random.default_rng(8)
+    lists = [su[co[x]:co[x + 1]] for x in range(n0)] + [su[:0]] * (n - n0)
+    hubs = {70: 9000, 2000: 12000, 2001: 8500, 3500: 10000}
+    for x, d in hubs.items():
+        lists[x] = np.sort(rng.choice(n, size=d, replace=False))
+    co = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(v) for v in lists], out=co[1:])
+    su = np.concatenate(lists).astype(np.int64)
+    assert (np.diff(co) > kplan.SPLIT_ARCS).sum() == len(hubs)
+    s = BVGraphSettings()
+    graph_b, offsets = _encode(co, su, s)
+    hco, hsu = PN.bv_decode_all(graph_b, n, len(su), s)
+    np.testing.assert_array_equal(hsu, su)
+    got, rep = _port(co, graph_b, offsets, s, len(su) // 3,
+                     target_arcs_per_lane=32)
+    assert len(got) >= 3 and {r["route"] for r in rep} == {"kernel"}
+    assert not any(r["fallback_arcs"] for r in rep)
+    _whole(got, hco, hsu)
+    assert sorted(found) == sorted(hubs.values())
+    base = str(tmp_path / "hubs")
+    BVGraph.store(CSRGraph(co, su, device=CPU), base)
+    found.clear()
+    one = load_csr(base, device=CPU)
+    assert sorted(found) == sorted(hubs.values())
+    assert one.report["route"] == "kernel" and one.report["fallback_arcs"] == 0
+    np.testing.assert_array_equal(one.offsets.numpy(), hco)
+    np.testing.assert_array_equal(one.succ.numpy(), hsu)

@@ -971,3 +971,100 @@ def test_sliced_decode_past_a_range_store_on_card(cuda, tmp_path):
     assert x == n and len(rep) >= 3
     assert all(r["route"] == "kernel" and r["fallback_arcs"] == 0
                for r in rep)
+
+
+@pytest.mark.parametrize("name", sorted(E.SPLIT_CASES) + ["corrupt_segment"])
+def test_split_decode_on_card_matches_plain(cuda, name):
+    """Lists split across preset lanes (``torch_edge_cases.SPLIT_CASES``):
+    B1 with its preset code equal to the twin, store and diagnostics; the
+    merge kernel equal to ``merge_split_plain``; the CSR equal to the
+    native decode, bar a corrupt preset lane's list, which is flagged."""
+    case = name if name in E.SPLIT_CASES else "copies"
+    co, su, s, kw, graph, offsets, outd = E.build_split(case)
+    plan = PP.plan_kernel_decode(offsets, outd, s, graph, device=cuda, **kw)
+    sp = plan.split
+    assert sp is not None and sp.segments > 0
+    if name == "corrupt_segment":
+        plan.meta[plan.lanes + 3, PK.M_BIT] += 1
+    if kw["halo_csr"] is None:
+        resolve_halos(plan)
+    store0 = plan.store.clone()
+    launched = dict(_build.LAUNCHES)
+    diag = PK.decode_lanes(plan.words, plan.meta, plan.store, plan.spec,
+                           plan.order)
+    assert (_build.LAUNCHES["bv_decode_lanes_split"]
+            == launched["bv_decode_lanes_split"] + 1)
+    assert _build.LAUNCHES["bv_decode_lanes"] == launched["bv_decode_lanes"]
+    diag_p = PK.decode_lanes_plain(plan.words, plan.meta, store0, plan.spec)
+    torch.cuda.synchronize()
+    assert torch.equal(diag, diag_p)
+    assert torch.equal(plan.store, store0)
+    errs = PK.check_diag(plan, diag)
+    if name == "corrupt_segment":
+        assert np.flatnonzero(errs).tolist() == [int(sp.seg_head[3])]
+        return
+    assert not errs.any()
+    before = _build.LAUNCHES["split_merge"]
+    PK.merge_split(sp, plan.store)
+    assert _build.LAUNCHES["split_merge"] == before + 2 * (sp.merged > 0)
+    PK.merge_split_plain(store0, sp.merge_row0, sp.merge_res, sp.merge_base)
+    torch.cuda.synchronize()
+    assert torch.equal(plan.store, store0)
+    full_co, full_su = E.SPLIT_CASES[case][0]()
+    hco, hsu = native.bv_decode_all(graph, len(full_co) - 1, len(full_su), s)
+    lo = kw.get("node_base", 0) + kw.get("first_node", 0)
+    pco, succ, filled = PC.decode_to_csr(plan)
+    assert filled == 0
+    np.testing.assert_array_equal(pco, hco[lo:] - hco[lo])
+    np.testing.assert_array_equal(succ.cpu().numpy(), hsu[hco[lo]:])
+
+
+def test_split_counters_on_card(cuda):
+    """A graph with lists over ``kplan.SPLIT_ARCS`` at the default
+    thresholds, planned cold and decoded on the card under a profiler:
+    ``plan.split_lists`` counts the lists over the threshold,
+    ``b1.split_arcs`` their residuals once a decode; the CSR is the
+    native decode's.  A plan with no list over it has no preset lane."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from webgraph_tpu_torch.utils import trace as T
+    n = 300_000
+    co, su = synthesize_webgraph(n, seed=4)
+    co, su = E.simple(co, su)
+    rng = np.random.default_rng(5)
+    lists = [su[co[x]:co[x + 1]] for x in range(n)]
+    for x, d in ((10, 9_000), (150_000, 60_000), (150_001, 20_000),
+                 (299_000, 120_000)):
+        lists[x] = np.sort(rng.choice(n, size=d, replace=False))
+    co = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(v) for v in lists], out=co[1:])
+    su = np.concatenate(lists).astype(np.int64)
+    s = BVGraphSettings()
+    graph, _gb, offs, _ob, _st = native.bv_encode(co, su, s, threads=4)
+    offsets = native.decode_offset_stream(offs, n, s.offset_coding)
+    outd = np.diff(co)
+    over = np.flatnonzero(outd > PP.SPLIT_ARCS)
+    T.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        plan = PP.plan_kernel_decode(offsets, outd, s, graph, device=cuda)
+        resolve_halos(plan)
+    c_plan = T.counters()
+    T.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pco, succ, filled = PC.decode_to_csr(plan)
+    c_dec = T.counters()
+    T.reset_counters()
+    hp = native.hub_parse(graph, over, offsets[over], outd, s, PP.SEG_ARCS,
+                          PP.SEG_BITS)
+    assert c_plan["plan.split_lists"] == len(over) == 4
+    assert c_plan["plan.split_segments"] == len(hp["cps"])
+    assert c_dec["b1.split_arcs"] == int(hp["res_cnt"].sum())
+    assert filled == 0
+    np.testing.assert_array_equal(pco, co)
+    np.testing.assert_array_equal(succ.cpu().numpy(), su)
+    lane_arcs = plan.store_off[1:] - plan.store_off[:-1] - plan.halo_arcs
+    seg = plan.meta[plan.lanes:, PK.preset_col(s.window_size)]
+    assert int(seg.max()) <= PP.SEG_ARCS < int(lane_arcs.max())
+    plain = PP.plan_kernel_decode(offsets, outd, s, graph, device=cuda,
+                                  split_arcs=int(outd.max()))
+    assert plain.split is None and plain.meta.shape[0] == plain.lanes

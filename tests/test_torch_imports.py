@@ -86,7 +86,7 @@ def test_importing_the_port_loads_no_jax():
         "from webgraph_tpu_torch.parallel import multihost, sharded\n"
         "import webgraph_tpu_torch.typed, webgraph_tpu_torch.cli\n"
         "import webgraph_tpu_torch.cli.main\n"
-        "import chip_smoke\n"
+        "import chip_smoke, split_sweep\n"
         "import importlib, pkgutil, webgraph_tpu_torch.experiments as ex\n"
         "mods = [m.name for m in pkgutil.iter_modules(ex.__path__)]\n"
         "assert sum(m.startswith('probe') for m in mods) == 17, mods\n"
@@ -194,9 +194,9 @@ KDECODE_NAMES = {
     "hub_fallback_nodes": "ops.kdecode.check_diag",  # then fill_lanes
     "plan_csr_index": "ops.csr.plan_csr_index",
     "fill_csr_device": "ops.csr.fill_csr_device",
-    "HubPlan": None,         # lanes are sized exactly: no hub split
-    "assemble_hubs": None,
-    "finalize_hub": None,
+    "HubPlan": "ops.kdecode.SplitPlan",      # built by plan_kernel_decode
+    "assemble_hubs": None,   # the head and preset lanes write in place
+    "finalize_hub": "ops.kdecode.merge_split",
 }
 
 

@@ -15,7 +15,10 @@ from webgraph_tpu.codecs.bvgraph import BVGraph, BVGraphSettings
 from webgraph_tpu.codecs.bvgraph import CompressionFlags as C
 from webgraph_tpu.core.graph import CSRGraph
 from webgraph_tpu.ops import kdecode as K
+from webgraph_tpu_torch import native as PN
+from webgraph_tpu_torch.core.graph import expand_ranges
 from webgraph_tpu_torch.ops import csr as PC
+from webgraph_tpu_torch.ops import kcompact as PKC
 from webgraph_tpu_torch.ops import kdecode as PK
 from webgraph_tpu_torch.ops import kplan as PP
 from webgraph_tpu_torch.ops.resolve import resolve_halos
@@ -316,3 +319,125 @@ def test_decode_lanes_order_and_checks_once():
     meta[2, PK.M_BASE], meta[2, PK.M_SEG] = 2, 3   # now ends past the store
     with pytest.raises(ValueError, match="outside the store"):
         PK.decode_lanes(words, meta, store, spec, order)
+
+
+def _bad_count(meta, L, W):
+    meta[L, PK.preset_col(W)] = 1 << 30
+
+
+def _bad_nodes(meta, L, W):
+    meta[L, PK.M_NODES] = 2
+
+
+def _bad_head_bit(meta, L, W):
+    head = int(torch.nonzero(meta[:L, PK.preset_col(W)] < 0)[0])
+    meta[head, PK.preset_col(W) + 1] = -1
+
+
+# lane tables the wrapper refuses (the cases of the refusal of any preset
+# lane before plans split lists)
+SPLIT_REJECTS = {"reject_count_2_30": _bad_count,
+                 "reject_preset_two_nodes": _bad_nodes,
+                 "reject_head_bit_negative": _bad_head_bit}
+
+
+def _native_csr(name, kw, s, graph):
+    """``native.bv_decode_all`` of the case's whole graph, cut to the nodes
+    the plan decodes."""
+    co, su = E.SPLIT_CASES[name][0]()
+    hco, hsu = PN.bv_decode_all(graph, len(co) - 1, len(su), s)
+    lo = kw.get("node_base", 0) + kw.get("first_node", 0)
+    return hco[lo:] - hco[lo], hsu[hco[lo]:]
+
+
+@pytest.mark.parametrize("name", sorted(E.SPLIT_CASES) + ["corrupt_segment"]
+                         + sorted(SPLIT_REJECTS))
+def test_split_plan_matches_native(name):
+    """Lists split across preset lanes (low ``split_arcs``/``seg_arcs``):
+    pure residuals, intervals, copy blocks, adjacent split lists, runs cut
+    by ``seg_bits``, a cold plan whose later node copies from a split list
+    (``resolve_halos``), a shard's cold plan (``first_node`` > 0), a warm
+    sliced plan (``node_base`` > 0).  The CSR equals ``native.bv_decode_all``
+    with nothing filled on the host, and so does the plan's lanes decoded
+    in three shares (``decode_sharded_kernel``).  ``corrupt_segment``: a
+    preset lane starting a bit late flags its list, which the host fill
+    decodes whole; the ``reject_*`` lane tables are refused."""
+    from webgraph_tpu_torch.parallel.sharded import decode_sharded_kernel
+    case = name if name in E.SPLIT_CASES else "copies"
+    co, su, s, kw, graph, offsets, outd = E.build_split(case)
+    plan = PP.plan_kernel_decode(offsets, outd, s, graph, device=CPU, **kw)
+    sp = plan.split
+    assert sp is not None and sp.segments > len(sp.nodes) > 0
+    assert (outd[sp.nodes] > kw["split_arcs"]).all()
+    assert plan.meta.shape[0] == plan.lanes + sp.segments
+    if name in SPLIT_REJECTS:
+        SPLIT_REJECTS[name](plan.meta, plan.lanes, s.window_size)
+        with pytest.raises(ValueError, match="preset"):
+            PK.decode_chunked(plan)
+        return
+    if name == "corrupt_segment":
+        plan.meta[plan.lanes + 3, PK.M_BIT] += 1
+    resolve_halos(plan)
+    pco, psu, filled = PC.decode_to_csr(plan)
+    eco, esu = _native_csr(case, kw, s, graph)
+    np.testing.assert_array_equal(pco, eco)
+    np.testing.assert_array_equal(psu.numpy(), esu)
+    if name == "corrupt_segment":
+        assert filled == outd[sp.nodes[sp.heads == sp.seg_head[3]]].sum()
+        return
+    assert filled == 0
+    rows = expand_ranges(plan.store_off[:-1] + plan.halo_arcs,
+                         np.diff(plan.store_off) - plan.halo_arcs, CPU)
+    plan.store[rows] = 0
+    store, diag = decode_sharded_kernel(plan, ["cpu"] * 3)
+    assert diag.shape == (plan.meta.shape[0], PK.DIAG_ROWS)
+    assert not PK.check_diag(plan, diag).any()
+    got = PKC.compact(plan.compact_plan, store)
+    np.testing.assert_array_equal(got.numpy(), esu)
+
+
+def test_split_plan_decodes_every_arc_each_call():
+    """The plan holds no successor: with the store's chunk rows zeroed
+    between two calls (its halo rows kept), both CSRs are the native
+    decode's."""
+    co, su, s, kw, graph, offsets, outd = E.build_split("cold_copied")
+    plan = PP.plan_kernel_decode(offsets, outd, s, graph, device=CPU, **kw)
+    assert plan.split.merged > 0
+    eco, esu = _native_csr("cold_copied", kw, s, graph)
+    rows = None
+    for _ in range(2):
+        pco, psu, filled = PC.decode_to_csr(plan)
+        assert filled == 0
+        np.testing.assert_array_equal(pco, eco)
+        np.testing.assert_array_equal(psu.numpy(), esu)
+        if rows is None:
+            rows = expand_ranges(plan.store_off[:-1] + plan.halo_arcs,
+                                 np.diff(plan.store_off) - plan.halo_arcs,
+                                 CPU)
+            plan.store[rows] = 0
+
+
+def test_split_counters():
+    """The plan's split counters and B1's split arcs, counted while a
+    profiler records: lists over the threshold, preset lanes, lists merged,
+    and the split lists' residuals once a decode."""
+    from torch.profiler import ProfilerActivity, profile
+    from webgraph_tpu_torch.utils import trace as T
+    co, su, s, kw, graph, offsets, outd = E.build_split("adjacent")
+    T.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        plan = PP.plan_kernel_decode(offsets, outd, s, graph, device=CPU,
+                                     **kw)
+        for _ in range(2):
+            PC.decode_to_csr(plan)
+    c = T.counters()
+    T.reset_counters()
+    sp = plan.split
+    over = np.flatnonzero(outd > kw["split_arcs"])
+    hp = PN.hub_parse(graph, over, offsets[over], outd, s, kw["seg_arcs"],
+                      PP.SEG_BITS)
+    assert c == {"plan.split_lists": len(over),
+                 "plan.split_segments": len(hp["cps"]),
+                 "plan.split_merged": sp.merged,
+                 "b1.split_arcs": 2 * int(hp["res_cnt"].sum())}
+    assert len(over) == 3 and 0 < sp.merged < 3

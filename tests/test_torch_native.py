@@ -202,3 +202,60 @@ def test_parse_arcs_fuzz_equal(seed):
             except ValueError as e:
                 outs.append(str(e))
         assert outs[0] == outs[1]
+
+
+def test_hub_parse_source_is_the_original():
+    """``wg_bv_hub_parse`` is copied, not rewritten."""
+    import webgraph_tpu.native as jn
+    import webgraph_tpu_torch.native as pn
+    here = [os.path.join(os.path.dirname(m.__file__), "wgnative.cpp")
+            for m in (jn, pn)]
+    assert _c_function(here[0], "wg_bv_hub_parse") == _c_function(
+        here[1], "wg_bv_hub_parse")
+
+
+_HUB_GRAPHS = {}
+
+
+def _hub_graph_encoded(res: int, window: int, minint: int):
+    """A star (one list of 4,999 arcs) and a dense Erdos-Renyi graph (lists
+    of ~1,400 arcs), each encoded once per format: (settings, stream,
+    offsets, outdegrees) per graph."""
+    key = (res, window, minint)
+    if key not in _HUB_GRAPHS:
+        s = BVGraphSettings(residual_coding=res, window_size=window,
+                            min_interval_length=minint)
+        out = []
+        for g in (star_graph(5000), erdos_renyi(1200, 0.6, seed=6)):
+            co, su = _csr(g)
+            graph, _gb, offs, _ob, _st = PN.bv_encode(co, su, s, threads=4)
+            offsets = PN.decode_offset_stream(offs, len(co) - 1,
+                                              s.offset_coding)
+            out.append((s, graph, offsets, np.diff(co)))
+        _HUB_GRAPHS[key] = out
+    return _HUB_GRAPHS[key]
+
+
+@pytest.mark.parametrize("arc_q,bit_q", [(64, 1 << 28), (1000, 1 << 28),
+                                         (1 << 20, 200)])
+@pytest.mark.parametrize("minint", [0, 4])
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("res", [C.ZETA, C.GAMMA, C.DELTA])
+def test_hub_parse_equal(res, window, minint, arc_q, bit_q):
+    """The checkpoint parse of long lists: every field equal to the JAX
+    package's, on the longest lists and a run of empty and short ones."""
+    segments = 0
+    for s, graph, offsets, outd in _hub_graph_encoded(res, window, minint):
+        nodes = np.unique(np.concatenate([np.argsort(-outd)[:40],
+                                          np.arange(1, 30)]))
+        got = PN.hub_parse(graph, nodes, offsets[nodes], outd, s, arc_q,
+                           bit_q)
+        exp = JN.hub_parse(graph, nodes, offsets[nodes], outd, s, arc_q,
+                           bit_q)
+        assert got.keys() == exp.keys()
+        for k in exp:
+            assert got[k].dtype == exp[k].dtype
+            np.testing.assert_array_equal(got[k], exp[k])
+        assert got["res_cnt"].sum() == got["cps"][:, 2].sum()
+        segments += len(got["cps"])
+    assert segments > 0

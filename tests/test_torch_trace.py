@@ -37,8 +37,8 @@ CPU = torch.device("cpu")
 LOAD_SPANS = {
     "wg.load_csr", "wg.files", "wg.to_device", "wg.files.read", "wg.plan",
     "wg.plan.offsets", "wg.plan.outdegrees", "wg.plan.scan_refs",
-    "wg.plan.chunks", "wg.plan.needed_preds", "wg.plan.lanes",
-    "wg.plan.chain_depths", "wg.plan.upload", "wg.resolve",
+    "wg.plan.split", "wg.plan.chunks", "wg.plan.needed_preds",
+    "wg.plan.lanes", "wg.plan.chain_depths", "wg.plan.upload", "wg.resolve",
     "wg.decode_to_csr", "wg.csr.index", "wg.b1", "wg.csr.flags", "wg.b2",
     "wg.from_decoded"}
 REPORT_KEYS = {"format", "route", "read_s", "plan_s", "resolve_s",

@@ -93,7 +93,10 @@ def build(name: str):
     entry makes a sliced plan: ``node_base=lo_p``, ``first_node=lo - lo_p``,
     and the returned CSR, offsets and outdegrees are the slice's own, from
     node lo_p on."""
-    make, s, kw = CASES[name]
+    return _build_case(*CASES[name])
+
+
+def _build_case(make, s, kw):
     co, su = make()
     n = len(co) - 1
     graph, _gb, offs, _ob, _st = native.bv_encode(co, su, s)
@@ -151,3 +154,104 @@ def garble(data, how):
         pos = rng.integers(0, len(data) * 8, 40)
         np.bitwise_xor.at(data, pos // 8, (1 << (pos % 8)).astype(np.uint8))
     return data
+
+
+# -- lists split across preset lanes (kplan.SPLIT_ARCS), at low thresholds --
+
+SPLIT_KW = dict(split_arcs=300, seg_arcs=64, target_arcs_per_lane=32)
+
+
+def _with_hubs(n: int, seed: int, hubs) -> tuple:
+    """``synthesize_webgraph(n)`` kept simple, with the lists of the nodes
+    in ``hubs`` ({node: list}) replaced."""
+    from webgraph_tpu_torch.utils.synth import synthesize_webgraph
+    co, su = simple(*synthesize_webgraph(n, seed=seed))
+    lists = [su[co[x]:co[x + 1]] for x in range(n)]
+    for x, lst in hubs.items():
+        lists[x] = np.unique(np.asarray(lst, dtype=np.int64))
+    return _csr(lists)
+
+
+def _rand(seed: int, n: int, d: int) -> np.ndarray:
+    return np.random.default_rng(seed).choice(n, size=d, replace=False)
+
+
+def _runs(seed: int, n: int, runs: int, length: int) -> np.ndarray:
+    """``runs`` runs of ``length`` consecutive ids (intervals) below n."""
+    lefts = np.random.default_rng(seed).choice(n // (2 * length), runs,
+                                              replace=False) * 2 * length
+    return (lefts[:, None] + np.arange(length)[None, :]).ravel()
+
+
+def _split_residual():
+    return _with_hubs(3000, 1, {40: _rand(1, 3000, 900),
+                                1500: _rand(2, 3000, 1200)})
+
+
+def _split_intervals():
+    return _with_hubs(3000, 2, {700: np.concatenate(
+        [_rand(3, 3000, 500), _runs(4, 3000, 30, 6)])})
+
+
+def _split_copies():
+    hub = _rand(5, 3000, 1000)
+    kept = np.delete(hub, np.arange(0, len(hub), 5))
+    return _with_hubs(3000, 3, {700: hub, 703: np.concatenate(
+        [kept, _rand(6, 3000, 60)])})
+
+
+def _split_adjacent():
+    return _with_hubs(3000, 4, {200 + i: _rand(10 + i, 3000, 400 + 150 * i)
+                                for i in range(3)})
+
+
+def _split_copied_by_later():
+    """A split list that a later, short list copies from, in another
+    chunk: its halo list is the split list's rows."""
+    hub = np.sort(_rand(7, 3000, 800))
+    return _with_hubs(3000, 5, {500: hub, 503: hub[::4]})
+
+
+def _split_shard():
+    hub = np.sort(_rand(8, 3000, 700))
+    return _with_hubs(3000, 6, {1000: hub, 1003: hub[::3],
+                                1800: _rand(9, 3000, 950)})
+
+
+def _split_sliced():
+    return _with_hubs(1500, 7, {60: _rand(11, 1500, 500),
+                                61: _rand(12, 1500, 450)})
+
+
+SPLIT_CASES = {
+    # name: (graph, settings, plan keywords); "cold" plans from the stream
+    # alone, "slice" as in CASES, "first_node" a shard's cold plan
+    "pure_residual": (_split_residual, BVGraphSettings(**_SETTINGS_W0),
+                      dict(SPLIT_KW)),
+    "intervals": (_split_intervals, BVGraphSettings(
+        window_size=0, min_interval_length=4, residual_coding=C.GAMMA),
+        dict(SPLIT_KW)),
+    "copies": (_split_copies, BVGraphSettings(residual_coding=C.DELTA),
+               dict(SPLIT_KW)),
+    "adjacent": (_split_adjacent, BVGraphSettings(), dict(SPLIT_KW)),
+    "bit_cut": (_split_residual, BVGraphSettings(),
+                dict(SPLIT_KW, seg_arcs=4096, seg_bits=300)),
+    "cold_copied": (_split_copied_by_later, BVGraphSettings(),
+                    dict(SPLIT_KW, cold=True)),
+    "shard": (_split_shard, BVGraphSettings(),
+              dict(SPLIT_KW, cold=True, first_node=1000)),
+    "sliced": (_split_sliced, BVGraphSettings(min_interval_length=3),
+               dict(SPLIT_KW, slice=(13, 34))),
+}
+
+
+def build_split(name: str):
+    """Case ``name`` of ``SPLIT_CASES`` as :func:`build` gives a case of
+    ``CASES``; the plan keywords of a cold case carry ``halo_csr=None``."""
+    make, s, kw = SPLIT_CASES[name]
+    kw = dict(kw)
+    cold = kw.pop("cold", False)
+    co, su, s, kw, graph, offsets, outd = _build_case(make, s, kw)
+    if cold:
+        kw["halo_csr"] = None
+    return co, su, s, kw, graph, offsets, outd

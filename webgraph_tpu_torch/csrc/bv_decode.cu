@@ -71,6 +71,9 @@ __device__ __forceinline__ int32_t sat(int64_t v) {  // v >= 0
 #ifndef WG_B1_THREADS
 #define WG_B1_THREADS 128
 #endif
+#ifndef WG_B1_SPLIT
+#define WG_B1_SPLIT 0
+#endif
 constexpr int THREADS = WG_B1_THREADS;
 
 __device__ __forceinline__ uint32_t word_at(const uint32_t* w, int64_t nw,
@@ -256,8 +259,17 @@ constexpr int ST_DONE = 0, ST_OUTD = 1, ST_REF = 2, ST_BC = 3, ST_BLK = 4,
               ST_ICNT = 5, ST_ILEFT = 6, ST_ILEN = 7, ST_RESF = 8,
               ST_EMIT = 9;
 
+// WG_B1_SPLIT builds the kernel with the preset lanes of split lists
+// (LanePlan.split) as bv_decode_lanes_split_kernel (bv_decode_split.cu);
+// without it the preprocessed kernel is the one without that code, which a
+// plan with no preset lane launches.
+#if WG_B1_SPLIT
+#define WG_B1_KERNEL bv_decode_lanes_split_kernel
+#else
+#define WG_B1_KERNEL bv_decode_lanes_kernel
+#endif
 __global__ void __launch_bounds__(THREADS)
-    bv_decode_lanes_kernel(const uint32_t* __restrict__ words, int64_t nwords,
+    WG_B1_KERNEL(const uint32_t* __restrict__ words, int64_t nwords,
                            const int64_t* __restrict__ meta, int64_t nmeta,
                            int64_t lanes, int32_t* store, int32_t* diag,
                            const int32_t* __restrict__ order, Spec sp) {
@@ -308,6 +320,32 @@ __global__ void __launch_bounds__(THREADS)
   // the sources of the next four copied arcs (rows ref_row + c_idx ...),
   // loaded ahead; a row at or past nrow is never used (E_COUNT first)
   int32_t c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+#if WG_B1_SPLIT
+  // a split list (meta's preset fields count, value): a preset lane
+  // (count > 0) starts in the emit state with a run of `count` residuals
+  // from the checkpoint `value`, its codes ending at bit pre_end (its start
+  // bit plus window slot 0's outdegree), reading one code more (the next
+  // run's head) where slot 0's row says the list goes on; the list's head
+  // lane (count < 0) reads the header, copies and intervals, checks its
+  // first residual code ends at bit `value`, leaves the -count residual
+  // rows to the preset lanes (jump) and writes the rest after them
+  int64_t skip = 0, skip_bit = 0, jump = 0, pre_end = -1;
+  bool pre_more = false;
+  {
+    const int64_t pc = mt[6 + 2 * CYC], pv = mt[7 + 2 * CYC];
+    if (pc > 0 && n_nodes > 0) {
+      st = ST_EMIT;
+      d = pc;
+      e_rem = r_rem = sat(pc);
+      r_val = pv;
+      pre_end = mt[1] + mt[6];
+      pre_more = mt[6 + CYC] != 0;
+    } else if (pc < 0) {
+      skip = -pc;
+      skip_bit = pv;
+    }
+  }
+#endif
   auto src = [&](int64_t r) { return r < nrow ? seg[r] : 0; };
   auto refill_copies = [&]() {
     const int64_t r = int64_t(ref_row) + c_idx;
@@ -376,7 +414,11 @@ __global__ void __launch_bounds__(THREADS)
         err |= E_WCUR;
         break;
       }
+#if WG_B1_SPLIT
+      if (win == 2 && (r_rem > 1 || pre_more)) kind = sp.k_res;
+#else
       if (win == 2 && r_rem > 1) kind = sp.k_res;
+#endif
     } else {
       kind = (kinds >> (3 * st)) & 7;
     }
@@ -482,12 +524,38 @@ __global__ void __launch_bounds__(THREADS)
         break;
       }
       case ST_RESF:
+#if WG_B1_SPLIT
+        if (skip) {
+          if (extra != skip || R.pos() != skip_bit) {
+            err |= E_COUNT;
+            goto out;
+          }
+          if (skip > seg_len - wcur) {
+            err |= E_WCUR;
+            goto out;
+          }
+          wcur += int32_t(skip);
+          jump = skip;
+          skip = 0;
+          if (d == jump)
+            node_fin = true;
+          else
+            init = true;
+          break;
+        }
+#endif
         r_val = nat2int(v) + x;
         r_rem = sat(extra);
         init = from_resf = true;
         break;
       default: {  // ST_EMIT, one successor
         const bool done = e_rem == 1;
+#if WG_B1_SPLIT
+        if (done && pre_end >= 0 && R.pos() != pre_end) {
+          err |= E_COUNT;
+          goto out;
+        }
+#endif
         if (done && (c_rem - (win == 0) != 0 || ilen_rem - (win == 1) != 0 ||
                      i_next != icnt32 || r_rem - (win == 2) != 0)) {
           err |= E_COUNT;
@@ -520,7 +588,16 @@ __global__ void __launch_bounds__(THREADS)
         st = sp.minint ? ST_ICNT : ST_RESF;
     }
     if (init) {
+#if WG_B1_SPLIT
+      if (skip) {  // a split list's head reached no residuals
+        err |= E_COUNT;
+        goto out;
+      }
+#endif
       e_rem = sat(d);
+#if WG_B1_SPLIT
+      e_rem = sat(d - jump);
+#endif
       if (!from_resf) r_rem = 0;
       c_rem = ref > 0 && cop > 0 ? int32_t(cop) : 0;  // cop <= ref_len < 2^30
       icnt32 = sat(icnt);
@@ -553,23 +630,98 @@ out:
   dg[3] = int32_t(steps);
 }
 
+#if !WG_B1_SPLIT
+// The rows of a split list that has copies or intervals hold two ascending
+// runs after B1: its residuals (the preset lanes') and then the rest (the
+// head lane's copies and intervals, merged).  split_merge puts each value
+// at its place in the list through tmp, one thread a row: a value's place
+// is its index in its run plus the count of the other run's values before
+// it, found by binary search; on a tie the head lane's value goes first, as
+// B1's merge inside one lane puts copies and intervals before residuals.
+// Phase 0 writes tmp, phase 1 copies tmp back into the store.  A run that
+// is not ascending (a flagged list's) still gives every value a place in
+// the list's rows.  tile[t / 256] is the list of row t / 256 * 256 (from
+// the plan), where a row's search for its list starts.
+__device__ __forceinline__ int64_t count_below(const int32_t* a, int64_t n,
+                                               int64_t v, bool or_equal) {
+  int64_t lo = 0;
+  while (n > 0) {
+    const int64_t h = n >> 1;
+    const int64_t y = a[lo + h];
+    if (or_equal ? y <= v : y < v) {
+      lo += h + 1;
+      n -= h + 1;
+    } else {
+      n = h;
+    }
+  }
+  return lo;
+}
+
+__global__ void split_merge_kernel(int32_t* store, int32_t* tmp,
+                                   const int64_t* __restrict__ row0,
+                                   const int64_t* __restrict__ res,
+                                   const int64_t* __restrict__ base,
+                                   const int32_t* __restrict__ tile,
+                                   int64_t total, int phase) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
+       t += stride) {
+    int64_t l = tile[t >> 8];  // then the last list with base[l] <= t
+    while (base[l + 1] <= t) ++l;
+    const int64_t k = t - base[l], r = res[l], d = base[l + 1] - base[l];
+    int32_t* const row = store + row0[l];
+    if (phase == 0) {
+      const int64_t v = row[k];
+      const int64_t at = k < r ? k + count_below(row + r, d - r, v, true)
+                               : k - r + count_below(row, r, v, false);
+      tmp[base[l] + at] = int32_t(v);
+    } else {
+      row[k] = tmp[t];
+    }
+  }
+}
+#endif  // !WG_B1_SPLIT
+
 }  // namespace
 
 #ifndef WG_HOST_BUILD
-extern "C" int wg_bv_decode_lanes(const void* words, int64_t nwords,
-                                  const void* meta, int64_t nmeta,
-                                  int64_t lanes, void* store, void* diag,
-                                  const void* order, int W, int minint, int zk, int k_outd,
-                                  int k_ref, int k_bc, int k_blk, int k_res,
-                                  void* stream) {
+#if WG_B1_SPLIT
+extern "C" int wg_bv_decode_lanes_split(
+#else
+extern "C" int wg_bv_decode_lanes(
+#endif
+    const void* words, int64_t nwords, const void* meta, int64_t nmeta,
+    int64_t lanes, void* store, void* diag, const void* order, int W,
+    int minint, int zk, int k_outd, int k_ref, int k_bc, int k_blk,
+    int k_res, void* stream) {
   if (lanes > 0) {
     Spec sp{W, minint, zk, k_outd, k_ref, k_bc, k_blk, k_res};
     const int64_t blocks = (lanes + THREADS - 1) / THREADS;
-    bv_decode_lanes_kernel<<<dim3(unsigned(blocks)), THREADS, 0,
-                             (cudaStream_t)stream>>>(
+    WG_B1_KERNEL<<<dim3(unsigned(blocks)), THREADS, 0,
+                   (cudaStream_t)stream>>>(
         (const uint32_t*)words, nwords, (const int64_t*)meta, nmeta, lanes,
         (int32_t*)store, (int32_t*)diag, (const int32_t*)order, sp);
   }
   return int(cudaGetLastError());
 }
+
+#if !WG_B1_SPLIT
+extern "C" int wg_split_merge(void* store, void* tmp, const void* row0,
+                              const void* res, const void* base,
+                              const void* tile, int64_t total,
+                              void* stream) {
+  if (total > 0) {
+    int64_t blocks = (total + 255) / 256;
+    if (blocks > (1 << 16)) blocks = 1 << 16;
+    for (int phase = 0; phase < 2; ++phase)
+      split_merge_kernel<<<dim3(unsigned(blocks)), 256, 0,
+                           (cudaStream_t)stream>>>(
+          (int32_t*)store, (int32_t*)tmp, (const int64_t*)row0,
+          (const int64_t*)res, (const int64_t*)base, (const int32_t*)tile,
+          total, phase);
+  }
+  return int(cudaGetLastError());
+}
+#endif  // !WG_B1_SPLIT
 #endif  // WG_HOST_BUILD

@@ -5,10 +5,10 @@ The library is built with g++ for the host it runs on, on first use, into
 committed.  It is the port's own copy of what it needs of the JAX package's
 host library, with the same functions and results: the offsets index, the
 outdegree scan, the sequential decoder, the batched range decoder, the
-header-only reference scan, the parallel and streaming encoders, the
-device encoder's greedy reference selection, and the arc-pair text parser
-of scattered-arc ingestion; and, the port's own, the threaded decode of
-list-label streams.
+header-only reference scan, the checkpoint parse of long lists, the
+parallel and streaming encoders, the device encoder's greedy reference
+selection, and the arc-pair text parser of scattered-arc ingestion; and,
+the port's own, the threaded decode of list-label streams.
 """
 
 from __future__ import annotations
@@ -21,8 +21,9 @@ import numpy as np
 
 __all__ = ["decode_offset_stream", "decode_outdegrees",
            "bv_decode_all", "bv_decode_range", "bv_encode", "bv_scan_refs",
-           "bv_fill_ranges", "select_refs", "StreamEncoder", "lib_path",
-           "parse_arcs", "parse_arcs_available", "decode_list_labels"]
+           "hub_parse", "bv_fill_ranges", "select_refs", "StreamEncoder",
+           "lib_path", "parse_arcs", "parse_arcs_available",
+           "decode_list_labels"]
 
 #: stats words returned by bv_encode: copied, intervalised, residual arcs;
 #: tot_ref, tot_dist; bits for outdegrees/references/blocks/intervals/
@@ -41,7 +42,8 @@ def _load() -> ctypes.CDLL:
         path = _build.build_native()
         lib = ctypes.CDLL(path)
         for fn in ("wg_bv_decode_all", "wg_bv_decode_range", "wg_bv_encode",
-                   "wg_bv_fill_ranges", "wg_bv_scan_refs", "wg_enc_push",
+                   "wg_bv_fill_ranges", "wg_bv_scan_refs", "wg_bv_hub_parse",
+                   "wg_enc_push",
                    "wg_enc_finish", "wg_select_refs", "wg_parse_arcs",
                    "wg_list_label_counts", "wg_list_label_entries"):
             getattr(lib, fn).restype = ctypes.c_int64
@@ -182,6 +184,64 @@ def bv_scan_refs(data: np.ndarray, offsets: np.ndarray, settings,
     if rc < 0:
         raise RuntimeError(f"native ref scan failed: {rc}")
     return refs[:n]
+
+
+def hub_parse(data: np.ndarray, nodes: np.ndarray, start_bits: np.ndarray,
+              outd: np.ndarray, settings, arc_quantum: int,
+              bit_quantum: int):
+    """Hub-entry header parse + residual checkpoints (wg_bv_hub_parse):
+    the plan-time index behind the split of long lists across B1's lanes
+    (``ops/kplan.py``).  Returns a dict of per-node counts and flat
+    (start,len)/(left,len)/(bit,val,cnt) arrays."""
+    lib = _load()
+    data = _padded(np.ascontiguousarray(data, dtype=np.uint8))
+    nodes = np.ascontiguousarray(nodes, dtype=np.int64)
+    start_bits = np.ascontiguousarray(start_bits, dtype=np.int64)
+    outd = np.ascontiguousarray(outd, dtype=np.int64)
+    codings = np.asarray([settings.outdegree_coding,
+                          settings.reference_coding,
+                          settings.block_count_coding,
+                          settings.block_coding,
+                          settings.residual_coding,
+                          settings.offset_coding], dtype=np.int32)
+    k = len(nodes)
+    ref = np.zeros(k, dtype=np.int64)
+    kept_cnt = np.zeros(k, dtype=np.int64)
+    int_cnt = np.zeros(k, dtype=np.int64)
+    res_cnt = np.zeros(k, dtype=np.int64)
+    cp_cnt = np.zeros(k, dtype=np.int64)
+    kept_cap, int_cap, cp_cap = 4 * k + 64, 4 * k + 64, 8 * k + 64
+    while True:
+        kept = np.zeros(kept_cap, dtype=np.int64)
+        ints = np.zeros(int_cap, dtype=np.int64)
+        cps = np.zeros(cp_cap, dtype=np.int64)
+        rc = lib.wg_bv_hub_parse(
+            _ptr(data), ctypes.c_int64(len(data) - 16),
+            _ptr(nodes, ctypes.c_int64), ctypes.c_int64(k),
+            _ptr(start_bits, ctypes.c_int64), _ptr(outd, ctypes.c_int64),
+            ctypes.c_int64(arc_quantum), ctypes.c_int64(bit_quantum),
+            ctypes.c_int(settings.window_size),
+            ctypes.c_int(settings.min_interval_length),
+            ctypes.c_int(settings.zeta_k), _ptr(codings, ctypes.c_int),
+            _ptr(ref, ctypes.c_int64), _ptr(kept_cnt, ctypes.c_int64),
+            _ptr(int_cnt, ctypes.c_int64), _ptr(res_cnt, ctypes.c_int64),
+            _ptr(cp_cnt, ctypes.c_int64),
+            _ptr(kept, ctypes.c_int64), ctypes.c_int64(kept_cap),
+            _ptr(ints, ctypes.c_int64), ctypes.c_int64(int_cap),
+            _ptr(cps, ctypes.c_int64), ctypes.c_int64(cp_cap))
+        if rc == -3:
+            kept_cap *= 4
+            int_cap *= 4
+            cp_cap *= 4
+            continue
+        if rc < 0:
+            raise RuntimeError(f"hub_parse failed: {rc}")
+        break
+    return dict(ref=ref, kept_cnt=kept_cnt, int_cnt=int_cnt,
+                res_cnt=res_cnt, cp_cnt=cp_cnt,
+                kept=kept[:int(kept_cnt.sum()) * 2].reshape(-1, 2),
+                ints=ints[:int(int_cnt.sum()) * 2].reshape(-1, 2),
+                cps=cps[:int(cp_cnt.sum()) * 3].reshape(-1, 3))
 
 
 def bv_fill_ranges(data: np.ndarray, settings, p: np.ndarray, x0: np.ndarray,

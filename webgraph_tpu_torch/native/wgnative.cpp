@@ -1081,6 +1081,132 @@ int64_t wg_bv_fill_ranges(const uint8_t* data, int64_t len_bytes,
     return 0;
 }
 
+// Hub-entry header parse + residual checkpoints — the plan-time index pass
+// behind device-side hub decode (nodes too large for a kernel lane's VMEM
+// column).  For each node x (its entry start bit supplied from the offsets
+// index): parses outdegree / reference / copy blocks / intervals, then
+// walks the residual gap codes recording a checkpoint (bit position AFTER
+// the value's code, the value itself, and the segment length) every
+// arc_quantum residuals or whenever the segment's bit span would exceed
+// bit_quantum — so every segment fits a kernel stream column.  The same
+// role as EFGraph's skip pointers (EFGraph.java:89) applied to BVGraph
+// residual runs.
+//
+// Outputs (flat, caller-sized; returns -3 when any capacity is exceeded so
+// the caller can grow and retry):
+//   ref_out[n], kept_cnt[n], int_cnt[n], res_cnt[n], cp_cnt[n]
+//   kept_pairs: (start,len) ranges into the REF list, copy order
+//   int_pairs:  (left,len) interval extents
+//   cps:        (bit_pos, value, count) residual segments
+int64_t wg_bv_hub_parse(const uint8_t* data, int64_t len_bytes,
+                        const int64_t* nodes, int64_t n_in,
+                        const int64_t* start_bits, const int64_t* outd_all,
+                        int64_t arc_quantum, int64_t bit_quantum,
+                        int window_size, int min_interval_length,
+                        int zeta_k, const int* codings,
+                        int64_t* ref_out, int64_t* kept_cnt,
+                        int64_t* int_cnt, int64_t* res_cnt, int64_t* cp_cnt,
+                        int64_t* kept_pairs, int64_t kept_cap,
+                        int64_t* int_pairs, int64_t int_cap,
+                        int64_t* cps, int64_t cp_cap) {
+    const int c_out = codings[0], c_ref = codings[1], c_bcnt = codings[2],
+              c_blk = codings[3], c_res = codings[4];
+    int64_t kp = 0, ip = 0, cp = 0;
+    for (int64_t i = 0; i < n_in; i++) {
+        BitReader r(data, (size_t)len_bytes);
+        r.pos = (size_t)start_bits[i];
+        const int64_t x = nodes[i];
+        const int64_t d = read_coded(r, c_out, zeta_k);
+        if (d != outd_all[x]) return -1;
+        int64_t ref = 0, copied = 0;
+        kept_cnt[i] = int_cnt[i] = res_cnt[i] = cp_cnt[i] = 0;
+        if (d == 0) { ref_out[i] = 0; continue; }
+        if (window_size > 0) ref = read_coded(r, c_ref, zeta_k);
+        ref_out[i] = ref;
+        if (ref > 0) {
+            const int64_t rl_len = outd_all[x - ref];
+            const int64_t bcnt = read_coded(r, c_bcnt, zeta_k);
+            int64_t pos = 0;
+            bool keep = true;
+            for (int64_t b = 0; b < bcnt; b++) {
+                int64_t c = read_coded(r, c_blk, zeta_k) + (b ? 1 : 0);
+                if (keep && c > 0) {
+                    int64_t ln = std::min(c, rl_len - pos);
+                    if (ln > 0) {
+                        if (kp + 2 > kept_cap) return -3;
+                        kept_pairs[kp++] = pos;
+                        kept_pairs[kp++] = ln;
+                        kept_cnt[i]++;
+                        copied += ln;
+                    }
+                }
+                pos += c;
+                keep = !keep;
+            }
+            if (bcnt % 2 == 0 && pos < rl_len) {
+                if (kp + 2 > kept_cap) return -3;
+                kept_pairs[kp++] = pos;
+                kept_pairs[kp++] = rl_len - pos;
+                kept_cnt[i]++;
+                copied += rl_len - pos;
+            }
+        }
+        int64_t extra = d - copied;
+        if (extra < 0) return -2;
+        if (extra > 0 && min_interval_length != 0) {
+            const int64_t icnt = r.read_gamma();
+            int64_t prev = 0;
+            for (int64_t t = 0; t < icnt; t++) {
+                int64_t left;
+                if (t == 0)
+                    left = prev = nat2int(r.read_gamma()) + x;
+                else
+                    left = prev = r.read_gamma() + prev + 1;
+                const int64_t ln = r.read_gamma() + min_interval_length;
+                if (ip + 2 > int_cap) return -3;
+                int_pairs[ip++] = left;
+                int_pairs[ip++] = ln;
+                int_cnt[i]++;
+                prev += ln;
+                extra -= ln;
+            }
+        }
+        if (extra > 0) {
+            res_cnt[i] = extra;
+            int64_t prev = x + nat2int(read_coded(r, c_res, zeta_k));
+            // open the first segment
+            if (cp + 3 > cp_cap) return -3;
+            int64_t seg = cp;
+            cps[cp] = (int64_t)r.pos;
+            cps[cp + 1] = prev;
+            cps[cp + 2] = 1;
+            cp += 3;
+            cp_cnt[i]++;
+            int64_t seg_bit0 = (int64_t)r.pos;
+            for (int64_t k = 1; k < extra; k++) {
+                const size_t before = r.pos;
+                prev += read_coded(r, c_res, zeta_k) + 1;
+                const bool cut = cps[seg + 2] >= arc_quantum
+                    || ((int64_t)r.pos - seg_bit0) > bit_quantum;
+                if (cut) {
+                    if (cp + 3 > cp_cap) return -3;
+                    seg = cp;
+                    cps[cp] = (int64_t)r.pos;
+                    cps[cp + 1] = prev;
+                    cps[cp + 2] = 1;
+                    cp += 3;
+                    cp_cnt[i]++;
+                    seg_bit0 = (int64_t)r.pos;
+                } else {
+                    cps[seg + 2]++;
+                }
+                (void)before;
+            }
+        }
+    }
+    return 0;
+}
+
 // Header-only reference scan: per node, position at offsets[x], read the
 // outdegree code and (window_size > 0, d > 0) the reference code; nothing
 // else is decoded — skipping to the next node is free via the offsets

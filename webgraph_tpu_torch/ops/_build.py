@@ -37,7 +37,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 _WGNATIVE_SRC = os.path.join(_PKG, "native", "wgnative.cpp")
 
-LAUNCHES = {"bv_decode_lanes": 0, "compact_runs": 0, "hyperball_merge": 0,
+LAUNCHES = {"bv_decode_lanes": 0, "bv_decode_lanes_split": 0,
+            "split_merge": 0, "compact_runs": 0, "hyperball_merge": 0,
             "ef_decode": 0}
 # one key per ``pl.pallas_call`` site of the JAX package's probes: the CUDA
 # source of its kernel and the site (file:line) it replaces
@@ -79,6 +80,9 @@ _vp, _i64, _ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
     "wg_bv_decode_lanes": [_vp, _i64, _vp, _i64, _i64, _vp, _vp, _vp]
     + [_ci] * 8 + [_vp],
+    "wg_bv_decode_lanes_split": [_vp, _i64, _vp, _i64, _i64, _vp, _vp, _vp]
+    + [_ci] * 8 + [_vp],
+    "wg_split_merge": [_vp, _vp, _vp, _vp, _vp, _vp, _i64, _vp],
     "wg_compact_runs": [_vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp, _i64, _i64,
                         _vp],
     "wg_hyperball_merge": [_vp, _vp, _ci, _vp, _i64, _vp, _i64, _vp, _vp,

@@ -21,8 +21,30 @@ node at a time but counts, commits and stops exactly at these steps.
 Lane table (``meta``, int64 ``(lanes, NMETA)``; columns ``M_*``): node count,
 absolute start bit, global id of the first node, halo rows (the chunk's first
 row), segment base and length in the store, the initial window (outdegree,
-then row, per slot) and the preset fields (count, value), which no plan of
-this package fills: the kernel rejects a preset lane.
+then row, per slot) and the preset fields (count, value, from
+``preset_col``).  A plan that splits long lists (``SplitPlan``, made by
+``kplan``) fills the preset fields:
+
+* a preset lane (count > 0) decodes one run of a split list's residuals:
+  ``count`` of them from the checkpoint value ``value``, its stream at the
+  bit after that value's code; it writes its rows into the list's own rows,
+  at the run's index.  Window slot 0 holds, in place of a window, where the
+  run's codes end (outdegree: bits from the start bit) and whether the list
+  goes on (row: 1), in which case the lane reads one code more, the next
+  run's head, so that each run is checked to end where the next begins;
+* the list's head lane (count = -residuals; the list is alone in its chunk)
+  decodes the header, the copy blocks and the intervals, checks that its
+  first residual code ends at bit ``value`` (the first run's start), and
+  writes the list's other values, copies and intervals merged, after the
+  residual rows.  Where there are any, ``merge_split`` merges the two
+  ascending runs after the decode.
+
+A preset lane's diagnostics are checked against its own rows, and a flagged
+one flags its head lane (``check_diag``, ``lanes_flagged``), whose chunk the
+host fill then decodes whole.  The kernel is built twice from one source:
+``bv_decode_lanes_split`` (``csrc/bv_decode_split.cu``, ``WG_B1_SPLIT``)
+for a lane table with preset fields, ``bv_decode_lanes`` without the preset
+code for every other.
 """
 
 from __future__ import annotations
@@ -34,6 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.trace import count
 from . import _build
 from .bitstream import K_GAMMA, K_NONE, K_ZETA, read_code, words_i64
 
@@ -63,6 +86,11 @@ _KERNEL_KINDS = (1, 2, 5, 6)   # delta, gamma, unary, zeta
 
 def nmeta(window_size: int) -> int:
     return M_WIN + 2 * (window_size + 1) + 2
+
+
+def preset_col(window_size: int) -> int:
+    """The lane table's column of the preset count; the value follows."""
+    return M_WIN + 2 * (window_size + 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +126,43 @@ class KernelSpec:
         if self.min_interval_length:
             ks.add(K_GAMMA)
         return tuple(sorted(ks))
+
+
+@dataclasses.dataclass
+class SplitPlan:
+    """The long lists a plan splits across lanes (``kplan``).  Each is alone
+    in its chunk, whose lane is its head lane; its residual run is cut at
+    the checkpoints of ``native.hub_parse`` into preset lanes, the rows
+    ``plan.lanes ..`` of the lane table.  The plan holds a checkpoint (bit,
+    value, count) a run and no successor: every call decodes every arc."""
+
+    nodes: np.ndarray         # int64[S] plan-local ids of the split lists
+    heads: np.ndarray         # int64[S] their head lanes
+    res: np.ndarray           # int64[S] residuals each (the preset lanes')
+    seg_head: np.ndarray      # int64[P] head lane of each preset lane
+    seg_wcur: np.ndarray      # int64[P] each preset lane's final WCUR
+    seg_head_t: torch.Tensor  # the two above, on the device
+    seg_wcur_t: torch.Tensor
+    # the lists with copies or intervals, merged after B1 (merge_split):
+    # first store row, residuals and row offsets, int64 on the device, and
+    # the list of every 256th row (int32)
+    merge_row0: torch.Tensor
+    merge_res: torch.Tensor
+    merge_base: torch.Tensor
+    merge_tile: torch.Tensor
+    merge_rows: int
+
+    @property
+    def segments(self) -> int:
+        return len(self.seg_head)
+
+    @property
+    def arcs(self) -> int:
+        return int(self.res.sum())
+
+    @property
+    def merged(self) -> int:
+        return len(self.merge_row0)
 
 
 @dataclasses.dataclass
@@ -143,10 +208,25 @@ class LanePlan:
     # csr.plan_csr_index: the run table and the CSR offsets
     compact_plan: object = None   # kcompact.CompactPlan
     csr_off: Optional[np.ndarray] = None
+    # the long lists split across preset lanes (meta's rows lanes ..)
+    split: Optional[SplitPlan] = None
 
     @property
     def lanes(self) -> int:
+        """Chunk lanes (the preset lanes of ``split`` follow them)."""
         return len(self.chunk_starts) - 1
+
+
+def lane_rows(plan: LanePlan, a: int, b: int) -> np.ndarray:
+    """The lane table's rows of chunk lanes [a, b): the lanes themselves,
+    then the preset lanes of the split lists they head (which write into
+    their head lane's store segment)."""
+    rows = np.arange(a, b, dtype=np.int64)
+    if plan.split is None:
+        return rows
+    h = plan.split.seg_head
+    return np.concatenate([rows, plan.lanes + np.flatnonzero(
+        (h >= a) & (h < b))])
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
@@ -163,21 +243,25 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
 _CHECKED = {}   # id(meta) -> (weak refs to meta and order, key)
 
 
-def _check_lane_table(meta, store, W: int, order) -> None:
+def _check_lane_table(meta, store, W: int, order) -> bool:
     """One device reduction: the kernel reads and writes only inside each
     lane's [base, base + seg) and trusts these bounds; it holds node ids,
-    rows and window entries in 32 bits, and takes the lanes in ``order``."""
+    rows, window entries and preset counts in 32 bits, and takes the lanes
+    in ``order``.  Returns whether a lane has preset fields."""
     key = (meta._version, store.numel(), W,
            None if order is None else (id(order), order._version))
     seen = _CHECKED.get(id(meta))
     if (seen is not None and seen[0]() is meta and seen[2] == key
             and (order is None or seen[1]() is order)):
-        return
+        return seen[3]
     base, seg, wcur0 = meta[:, M_BASE], meta[:, M_SEG], meta[:, M_WCUR0]
     nodes, x = meta[:, M_NODES], meta[:, M_X]
     win = meta[:, M_WIN:M_WIN + 2 * (W + 1)]
+    pc, pv = meta[:, preset_col(W)], meta[:, preset_col(W) + 1]
+    split = pc != 0
     checks = [
-        (meta[:, M_WIN + 2 * (W + 1)] != 0).any(),
+        (split & ((nodes != 1) | (pc >= 1 << 30) | (pc <= -(1 << 30))
+                  | (pv < 0) | ((pc > 0) & (pv >= 1 << 31)))).any(),
         ((base < 0) | (wcur0 < 0) | (wcur0 > seg) | (meta[:, M_BIT] < 0)
          | (base + seg > store.numel())).any(),
         ((seg >= 1 << 30) | (nodes < 0) | (x < 0) | (x + nodes >= 1 << 31)
@@ -187,9 +271,12 @@ def _check_lane_table(meta, store, W: int, order) -> None:
         checks.append((order < 0).any() | (order >= L).any()
                       | (torch.bincount(order.clamp(0, L - 1).to(torch.int64),
                                         minlength=L) != 1).any())
+    checks.append(split.any())
     bad = torch.stack(checks).tolist()
     if bad[0]:
-        raise ValueError("preset lanes are not supported by this kernel")
+        raise ValueError("a preset lane or a split list's head lane holds "
+                         "one node, a count of magnitude below 2^30 and a "
+                         "value (a node id below 2^31, or a bit) >= 0")
     if bad[1]:
         raise ValueError("a lane's segment lies outside the store")
     if bad[2]:
@@ -197,11 +284,12 @@ def _check_lane_table(meta, store, W: int, order) -> None:
                          "and window entries 30")
     if order is not None and bad[3]:
         raise ValueError("order is not a permutation of the lanes")
-    for k in [k for k, (ref, _o, _k) in _CHECKED.items() if ref() is None]:
+    for k in [k for k, v in _CHECKED.items() if v[0]() is None]:
         del _CHECKED[k]
     _CHECKED[id(meta)] = (weakref.ref(meta),
                           weakref.ref(order) if order is not None else None,
-                          key)
+                          key, bad[-1])
+    return bad[-1]
 
 
 def decode_lanes(words: torch.Tensor, meta: torch.Tensor,
@@ -212,8 +300,10 @@ def decode_lanes(words: torch.Tensor, meta: torch.Tensor,
 
     ``order``: int32, a permutation of the lanes, the order in which the
     kernel's threads take them (``LanePlan.order``: the costliest first);
-    no result depends on it.  CUDA tensors launch ``bv_decode_lanes``; CPU
-    tensors run :func:`decode_lanes_plain`."""
+    no result depends on it.  CUDA tensors launch ``bv_decode_lanes``
+    (``bv_decode_lanes_split`` for a lane table with preset fields; each
+    counts its launches in ``_build.LAUNCHES``); CPU tensors run
+    :func:`decode_lanes_plain`."""
     dev = meta.device
     _check(words, "words", torch.int32, 1, dev)
     _check(meta, "meta", torch.int64, 2, dev)
@@ -231,24 +321,23 @@ def decode_lanes(words: torch.Tensor, meta: torch.Tensor,
                          f"expected {nmeta(W)}")
     if K_ZETA in spec.kinds() and not 1 <= spec.zeta_k <= 32:
         raise ValueError(f"zeta_k {spec.zeta_k} outside 1..32")
-    if meta.shape[0]:
-        _check_lane_table(meta, store, W, order)
+    split = bool(meta.shape[0]) and _check_lane_table(meta, store, W, order)
     if dev.type == "cpu":
         return decode_lanes_plain(words, meta, store, spec)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lanes = meta.shape[0]
     diag = torch.empty((lanes, DIAG_ROWS), dtype=torch.int32, device=dev)
-    lib = _build.lib()
-    rc = lib.wg_bv_decode_lanes(
+    key = "bv_decode_lanes_split" if split else "bv_decode_lanes"
+    rc = getattr(_build.lib(), "wg_" + key)(
         words.data_ptr(), words.shape[0], meta.data_ptr(), meta.shape[1],
         lanes, store.data_ptr(), diag.data_ptr(),
         None if order is None else order.data_ptr(), W,
         spec.min_interval_length, spec.zeta_k, spec.outdegree_coding,
         spec.reference_coding, spec.block_count_coding, spec.block_coding,
         spec.residual_coding, _build.stream_ptr(meta))
-    _build.check(rc, "bv_decode_lanes")
-    _build.LAUNCHES["bv_decode_lanes"] += 1
+    _build.check(rc, key)
+    _build.LAUNCHES[key] += 1
     return diag
 
 
@@ -280,13 +369,26 @@ def decode_lanes_plain(words: torch.Tensor, meta: torch.Tensor,
     n_nodes = meta[:, M_NODES]
     wcur = meta[:, M_WCUR0].clone()
     slots = torch.arange(CYC, device=dev)[None, :]
+    # the preset fields: a preset lane starts emitting its run, a split
+    # list's head lane skips its residuals (the kernel's SPLIT code)
+    pc, pv = meta[:, preset_col(W)], meta[:, preset_col(W) + 1]
+    pre = (pc > 0) & (n_nodes > 0)
+    d0 = torch.where(pre, pc, 0)
+    st0 = torch.where(n_nodes > 0, torch.where(pc > 0, ST_EMIT, ST_OUTD),
+                      ST_DONE)
     # the working set: per-lane state, one row per lane still in it
     state = [meta[:, M_BIT].clone(), meta[:, M_X].clone(), wcur,
-             wcur.clone(), torch.where(n_nodes > 0, ST_OUTD, ST_DONE),
-             *(z.clone() for _ in range(31)), n_nodes, meta[:, M_BASE],
-             meta[:, M_SEG], meta[:, M_WIN:M_WIN + CYC].clone(),
+             wcur.clone(), st0, *(z.clone() for _ in range(31)), n_nodes,
+             meta[:, M_BASE], meta[:, M_SEG],
+             meta[:, M_WIN:M_WIN + CYC].clone(),
              meta[:, M_WIN + CYC:M_WIN + 2 * CYC].clone(),
+             torch.where(pc < 0, -pc, 0), torch.where(pc < 0, pv, 0),
+             z.clone(), torch.where(pre, meta[:, M_BIT] + meta[:, M_WIN], -1),
+             pre & (meta[:, M_WIN + CYC] != 0),
              torch.arange(L, device=dev)]
+    # a preset lane's d, e_rem, r_rem and r_val (entries 8, 26, 34, 35)
+    state[8], state[26], state[34] = d0, d0.clone(), d0.clone()
+    state[35] = torch.where(pre, pv, 0)
     result = torch.zeros((L, DIAG_ROWS), dtype=i64, device=dev)
     have_store = store.numel() > 0
     state_kind = {ST_OUTD: spec.outdegree_coding,
@@ -307,7 +409,7 @@ def decode_lanes_plain(words: torch.Tensor, meta: torch.Tensor,
          cop, extra, bc, blk_i, blk_tot, blk_cop, blk0, cblk, icnt, i_idx,
          iprev, ileft, ipos0, ipos, e_rem, c_rem, c_idx, krem, bj, iv,
          ilen_rem, i_next, r_rem, r_val, n_nodes, base, seg_len, win_d,
-         win_row, lane) = state
+         win_row, skip, skip_bit, jump, pre_end, pre_more, lane) = state
         # lanes per state: one host sync per step; blocks of absent states
         # are skipped
         cnt = torch.bincount(st, minlength=10).tolist()
@@ -370,7 +472,7 @@ def decode_lanes_plain(words: torch.Tensor, meta: torch.Tensor,
             kind1 = W_(iload, K_GAMMA, kind1)
             kinds1.add(K_GAMMA)
         if any_emit:
-            kind1 = W_(emit & win_r & (r_rem > 1) & (e_em == 0),
+            kind1 = W_(emit & win_r & ((r_rem > 1) | pre_more) & (e_em == 0),
                        spec.residual_coding, kind1)
             kinds1.add(spec.residual_coding)
         p1 = pos
@@ -408,12 +510,17 @@ def decode_lanes_plain(words: torch.Tensor, meta: torch.Tensor,
             ln = v + MININT
             ex = extra - ln
             chk = chk | W_(ms[ST_ILEN] & (ex < 0), E_COUNT, 0)
+        if ST_RESF in ms:
+            hs = ms[ST_RESF] & (skip > 0)
+            chk = chk | W_(hs & ((extra != skip) | (q1 != skip_bit)), E_COUNT,
+                           W_(hs & (skip > seg_len - wcur), E_WCUR, 0))
         if any_emit:
             done_e = emit & (e_rem == 1)
             left_open = (((c_rem - win_c.to(i64)) != 0)
                          | ((ilen_rem - win_i.to(i64)) != 0)
                          | (i_next != icnt)
-                         | ((r_rem - win_r.to(i64)) != 0))
+                         | ((r_rem - win_r.to(i64)) != 0)
+                         | ((pre_end >= 0) & (q1 != pre_end)))
             chk = chk | W_(done_e & left_open, E_COUNT, 0)
         e = W_(re != 0, re, chk)
         if any_emit:
@@ -505,10 +612,17 @@ def decode_lanes_plain(words: torch.Tensor, meta: torch.Tensor,
             st = W_(fin & (extra > 0), ST_RESF, st)
             init_e = fin & (extra <= 0)
         if ST_RESF in c:
-            m_ = c[ST_RESF]
+            hs = c[ST_RESF] & (skip > 0)
+            m_ = c[ST_RESF] & ~hs
             r_val = W_(m_, _nat2int(v) + x, r_val)
             r_rem = W_(m_, extra, r_rem)
             init_resf = m_
+            # a split list's head: its residual rows are the preset lanes'
+            wcur = W_(hs, wcur + skip, wcur)
+            jump = W_(hs, skip, jump)
+            skip = W_(hs, 0, skip)
+            node_fin = node_fin | (hs & (d == jump))
+            init_e = init_e | (hs & (d != jump))
         if any_cskip:
             m_ = cskip & ok
             c_idx = W_(m_, c_idx + v1 + 1, c_idx)
@@ -550,7 +664,9 @@ def decode_lanes_plain(words: torch.Tensor, meta: torch.Tensor,
         # -- init_emit
         if init_e is not nob or init_resf is not nob:
             ie = init_e | init_resf
-            e_rem = W_(ie, d, e_rem)
+            # a split list's head that reaches its emit state unskipped
+            bad_h = ie & (skip > 0)
+            e_rem = W_(ie, d - jump, e_rem)
             r_rem = W_(init_e, 0, r_rem)
             cp = ie & (ref > 0) & (cop > 0)
             c_rem = W_(ie, W_(cp, cop, 0), c_rem)
@@ -561,7 +677,8 @@ def decode_lanes_plain(words: torch.Tensor, meta: torch.Tensor,
             i_next = W_(ie, 0, i_next)
             ipos = W_(ie, ipos0, ipos)
             iprev = W_(ie, 0, iprev)
-            st = W_(ie, ST_EMIT, st)
+            st = W_(ie & ~bad_h, ST_EMIT, W_(bad_h, ST_DONE, st))
+            err = err | W_(bad_h, E_COUNT, 0)
         # -- node completion: window update, next node
         if node_fin is not nob:
             wm = node_fin[:, None] & (slots
@@ -577,34 +694,118 @@ def decode_lanes_plain(words: torch.Tensor, meta: torch.Tensor,
                  ref_row, cop, extra, bc, blk_i, blk_tot, blk_cop, blk0,
                  cblk, icnt, i_idx, iprev, ileft, ipos0, ipos, e_rem, c_rem,
                  c_idx, krem, bj, iv, ilen_rem, i_next, r_rem, r_val,
-                 n_nodes, base, seg_len, win_d, win_row, lane]
+                 n_nodes, base, seg_len, win_d, win_row, skip, skip_bit, jump,
+                 pre_end, pre_more, lane]
 
     return result.to(torch.int32)
 
 
+def _count_below(store, a0, n, v, or_equal: bool):
+    """Per element: how many of the n values from ``store[a0]`` on are
+    below ``v`` (or equal, ``or_equal``), by the binary search of
+    ``split_merge_kernel``'s ``count_below``, probe for probe."""
+    lo = torch.zeros_like(n)
+    n = n.clone()
+    while bool((n > 0).any()):
+        on = n > 0
+        h = n >> 1
+        y = store[torch.where(on, a0 + lo + h, 0)].to(torch.int64)
+        go = on & ((y <= v) if or_equal else (y < v))
+        lo = torch.where(go, lo + h + 1, lo)
+        n = torch.where(go, n - h - 1, torch.where(on, h, n))
+    return lo
+
+
+def merge_split_plain(store: torch.Tensor, row0: torch.Tensor,
+                      res: torch.Tensor, base: torch.Tensor) -> None:
+    """The plain PyTorch twin of ``split_merge``: the same places, found by
+    the same searches, one row an element."""
+    total = int(base[-1])
+    t = torch.arange(total, device=store.device)
+    lst = torch.searchsorted(base[:-1], t, right=True) - 1
+    k = t - base[lst]
+    r = res[lst]
+    d = base[lst + 1] - base[lst]
+    a = row0[lst]
+    v = store[a + k].to(torch.int64)
+    head = k >= r      # the head lane's values, after the residuals
+    at = torch.where(
+        head, k - r + _count_below(store, a, torch.where(head, r, 0), v,
+                                   False),
+        k + _count_below(store, a + r, torch.where(head, 0, d - r), v, True))
+    tmp = torch.empty(total, dtype=store.dtype, device=store.device)
+    tmp[base[lst] + at] = v.to(store.dtype)
+    store[a + k] = tmp
+
+
+def merge_split(split: SplitPlan, store: torch.Tensor) -> None:
+    """After B1: merge the residual rows and the head lane's rows of each
+    split list with copies or intervals into the list's order, in place.
+    CUDA tensors launch ``split_merge`` (two passes through a buffer), CPU
+    tensors run :func:`merge_split_plain`."""
+    if not split.merged:
+        return
+    if store.device.type != "cuda":
+        merge_split_plain(store, split.merge_row0, split.merge_res,
+                          split.merge_base)
+        return
+    tmp = torch.empty(split.merge_rows, dtype=torch.int32,
+                      device=store.device)
+    rc = _build.lib().wg_split_merge(
+        store.data_ptr(), tmp.data_ptr(), split.merge_row0.data_ptr(),
+        split.merge_res.data_ptr(), split.merge_base.data_ptr(),
+        split.merge_tile.data_ptr(), split.merge_rows,
+        _build.stream_ptr(store))
+    _build.check(rc, "split_merge")
+    _build.LAUNCHES["split_merge"] += 2     # its two passes, a launch each
+
+
 def decode_chunked(plan: LanePlan) -> torch.Tensor:
-    """Run the decode over every lane of the plan (into ``plan.store``);
-    returns the diagnostics."""
-    return decode_lanes(plan.words, plan.meta, plan.store, plan.spec,
+    """Run the decode over every lane of the plan (into ``plan.store``),
+    then merge the split lists that need it; returns the diagnostics, one
+    row a lane of the lane table (the preset lanes after the chunks').
+
+    Counter ``b1.split_arcs``: the arcs the preset lanes decoded."""
+    diag = decode_lanes(plan.words, plan.meta, plan.store, plan.spec,
                         plan.order)
+    count("b1.split_arcs", 0 if plan.split is None else plan.split.arcs)
+    if plan.split is not None:
+        merge_split(plan.split, plan.store)
+    return diag
 
 
 def lanes_flagged(plan: LanePlan, diag: torch.Tensor) -> torch.Tensor:
     """``check_diag(plan, diag) != 0`` on the diagnostics' device:
     bool[lanes], with no copy to the host."""
-    return ((diag[:, DIAG_ERR] != 0)
-            | (diag[:, DIAG_WCUR] != plan.expect[:, 0])
-            | (diag[:, DIAG_NODES] != plan.expect[:, 1]))
+    L = plan.lanes
+    f = ((diag[:L, DIAG_ERR] != 0)
+         | (diag[:L, DIAG_WCUR] != plan.expect[:, 0])
+         | (diag[:L, DIAG_NODES] != plan.expect[:, 1]))
+    sp = plan.split
+    if sp is None or not sp.segments:
+        return f
+    fp = ((diag[L:, DIAG_ERR] != 0) | (diag[L:, DIAG_WCUR] != sp.seg_wcur_t)
+          | (diag[L:, DIAG_NODES] != 1))
+    return f.to(torch.int32).index_add_(0, sp.seg_head_t,
+                                        fp.to(torch.int32)) != 0
 
 
 def check_diag(plan: LanePlan, diag) -> np.ndarray:
     """Per-lane error bits (int64[lanes]); nonzero means host fill.
 
     Beyond the kernel's own bits, cross-checks each lane's final row and
-    node count against the plan: a desynced stream cannot pass both."""
+    node count against the plan: a desynced stream cannot pass both.  A
+    preset lane's bits go to its split list's head lane."""
     d = diag.cpu().numpy() if isinstance(diag, torch.Tensor) else diag
     d = np.asarray(d, dtype=np.int64)
-    err = d[:, DIAG_ERR].copy()
-    err |= np.where((d[:, DIAG_WCUR] != plan.exp_arcs)
-                    | (d[:, DIAG_NODES] != plan.exp_nodes), E_COUNT, 0)
+    L = plan.lanes
+    err = d[:L, DIAG_ERR].copy()
+    err |= np.where((d[:L, DIAG_WCUR] != plan.exp_arcs)
+                    | (d[:L, DIAG_NODES] != plan.exp_nodes), E_COUNT, 0)
+    sp = plan.split
+    if sp is not None and sp.segments:
+        ep = d[L:, DIAG_ERR] | np.where((d[L:, DIAG_WCUR] != sp.seg_wcur)
+                                        | (d[L:, DIAG_NODES] != 1),
+                                        E_COUNT, 0)
+        np.bitwise_or.at(err, sp.seg_head, ep)
     return err

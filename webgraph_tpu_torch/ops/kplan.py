@@ -5,8 +5,22 @@ Counterpart of ``webgraph_tpu/ops/kdecode.py`` ``plan_kernel_decode``
 
 The node range is cut into cost-balanced chunks, one per lane.  Each lane
 gets a store segment sized exactly to its halo lists plus its chunk's arcs,
-since the outdegrees are known, so no lane is skipped for size and no hub
-split is needed: a large node simply makes a long lane.
+since the outdegrees are known, so no lane is skipped for size.
+
+A list of more than ``SPLIT_ARCS`` arcs is split: one thread decoding it
+alone would set B1's time (~1.5 arcs/us).  The list gets a chunk of its own
+(its head lane), and the native checkpoint parse (``native.hub_parse``, the
+reference's ``wg_bv_hub_parse``) cuts its residual run into runs of at most
+``SEG_ARCS`` arcs and ``SEG_BITS`` bits, each decoded by a preset lane of
+its own that writes into the head lane's rows at the run's index
+(``kdecode.SplitPlan``).  The store layout, B2's runs and the cold plan's
+halo sources stay those of the unsplit plan.  The plan keeps a checkpoint
+(bit, value, count) a run, never a successor.  A list with copies or
+intervals is merged after B1 (``kdecode.merge_split``).  The span
+``wg.plan.split`` holds the outdegree test and the parse; the counters
+``plan.split_lists`` (lists over the threshold), ``plan.split_segments``
+(preset lanes) and ``plan.split_merged`` (lists that need the merge) count
+every plan, 0 where nothing is split.
 
 Warm plans (``halo_csr`` given) write the halo lists into the store up
 front.  Cold plans see only the stream and its offsets, as the reference's
@@ -26,10 +40,10 @@ import torch
 
 from .. import native as _native
 
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .bitstream import stream_words
 from .kdecode import (M_BASE, M_BIT, M_NODES, M_SEG, M_WCUR0, M_WIN, M_X,
-                      KernelSpec, LanePlan, nmeta)
+                      KernelSpec, LanePlan, SplitPlan, nmeta, preset_col)
 from .resolve import pred_values as _pred_values
 
 # a lane's step count is ~ its arcs plus ~STATE_COST header steps per node:
@@ -37,6 +51,12 @@ from .resolve import pred_values as _pred_values
 # regions thousands of nodes per lane)
 STATE_COST = 5
 MAX_LANES = 1 << 20
+# a list of more arcs than SPLIT_ARCS is split across preset lanes of at
+# most SEG_ARCS arcs and SEG_BITS bits each (the reference's bit cut,
+# webgraph_tpu/ops/kdecode.py plan_kernel_decode: 32 * (r_cap - 2) - 256)
+SPLIT_ARCS = 8192
+SEG_ARCS = 4096
+SEG_BITS = 32 * (160 - 2) - 256
 
 
 def _needed_preds(starts, ends, refs, W, n):
@@ -89,11 +109,31 @@ def _within(cnt):
                                                       cnt)
 
 
+def _split_lists(data, settings, offsets, outd, refs, first_node: int,
+                 split_arcs: int, seg_arcs: int, seg_bits: int):
+    """The lists to split and their checkpoints (``native.hub_parse``), or
+    None when there is none or the parse fails (the plan then splits
+    nothing)."""
+    xs = np.flatnonzero(outd[first_node:] > split_arcs) + first_node
+    if refs is not None:    # a reference before node 0: a corrupt header
+        xs = xs[refs[xs] <= xs]
+    if not len(xs):
+        return None
+    try:
+        hp = _native.hub_parse(data, xs, offsets[xs], outd, settings,
+                               seg_arcs, seg_bits)
+    except RuntimeError:
+        return None
+    return xs, hp
+
+
 def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
                        halo_csr: Optional[Tuple[np.ndarray, np.ndarray]]
                        = None,
                        target_arcs_per_lane: int = 128,
-                       node_base: int = 0, first_node: int = 0
+                       node_base: int = 0, first_node: int = 0,
+                       split_arcs: int = SPLIT_ARCS,
+                       seg_arcs: int = SEG_ARCS, seg_bits: int = SEG_BITS
                        ) -> Optional[LanePlan]:
     """Build the lane plan on ``device``, or return None when the format is
     outside the kernel's envelope.
@@ -102,7 +142,12 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
     (warm plan); None plans cold.  ``node_base``: global id of plan-local
     node 0 (sliced plans, warm only); ``first_node``: first plan-local node
     to decode (the ones before it are halo only).  Per-node references come
-    from the native header scan (``native.bv_scan_refs``)."""
+    from the native header scan (``native.bv_scan_refs``).  Lists of more
+    than ``split_arcs`` arcs are split into preset lanes of at most
+    ``seg_arcs`` arcs and ``seg_bits`` bits (module docstring); the
+    defaults are the module's ``SPLIT_ARCS``, ``SEG_ARCS``, ``SEG_BITS``."""
+    if not 0 < seg_bits < 1 << 29 or seg_arcs < 1:
+        raise ValueError("seg_bits must lie in 1..2^29 - 1, seg_arcs >= 1")
     spec = KernelSpec.from_settings(settings)
     if not spec.supported():
         return None
@@ -122,6 +167,9 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
             refs = _native.bv_scan_refs(data, offsets,
                                         settings).astype(np.int64)
 
+    with span("plan.split"):
+        hub = _split_lists(data, settings, offsets, outd, refs, first_node,
+                           split_arcs, seg_arcs, seg_bits)
     with span("plan.chunks"):
         cum = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(outd, out=cum[1:])
@@ -129,8 +177,13 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
         m = int(cum[n]) - arc_base
         L = max(1024, min(MAX_LANES, 1 << int(np.ceil(np.log2(
             max(m, 1) / target_arcs_per_lane + 1)))))
+        # a split list's chunk costs its head lane's work, not its residuals
+        cost_n = outd + STATE_COST
+        if hub is not None:
+            cost_n = cost_n.copy()
+            cost_n[hub[0]] -= hub[1]["res_cnt"]
         cumc = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(outd + STATE_COST, out=cumc[1:])
+        np.cumsum(cost_n, out=cumc[1:])
         c0 = int(cumc[first_node])
         mc = int(cumc[n]) - c0
         bounds = np.empty(L + 1, dtype=np.int64)
@@ -140,6 +193,9 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
             side="left")
         bounds[L] = n
         bounds = np.maximum.accumulate(bounds)
+        if hub is not None:     # each split list alone in its chunk
+            bounds = np.sort(np.concatenate([bounds, hub[0], hub[0] + 1]))
+            L = len(bounds) - 1
         starts, ends = bounds[:-1], bounds[1:]
         active = starts != ends
 
@@ -221,6 +277,14 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
         # threads take the costliest lanes first: long lanes start in the
         # first wave, and a warp's 32 lanes cost about the same
         cost = (ends - starts) * STATE_COST + arcs
+        split = None
+        if hub is not None:
+            meta, cost, split = _preset_lanes(
+                hub, meta, cost, bounds, offsets, outd, halo, store_off, W,
+                node_base, device)
+        count("plan.split_lists", 0 if hub is None else len(hub[0]))
+        count("plan.split_segments", 0 if split is None else split.segments)
+        count("plan.split_merged", 0 if split is None else split.merged)
         order = np.argsort(-cost, kind="stable").astype(np.int32)
 
     if src0 is not None:    # the cold plan's halo triples
@@ -244,4 +308,60 @@ def plan_kernel_decode(offsets, outdegrees, settings, data, *, device,
             order=torch.from_numpy(order).to(device),
             data=np.asarray(data, dtype=np.uint8), settings=settings,
             node_base=node_base, arc_base=arc_base, cold=cold,
-            resolved=not (cold and len(cnt) > 0), **wf)
+            resolved=not (cold and len(cnt) > 0), split=split, **wf)
+
+
+def _preset_lanes(hub, meta, cost, bounds, offsets, outd, halo, store_off,
+                  W: int, node_base: int, device):
+    """The split lists' rows of the lane table: each head lane's preset
+    fields, then one preset lane a checkpoint (``kdecode`` module
+    docstring).  Returns (the lane table with the preset lanes after the
+    chunks', the lanes' costs, the ``SplitPlan``)."""
+    xs, hp = hub
+    res, cpc, cps = hp["res_cnt"], hp["cp_cnt"], hp["cps"]
+    heads = np.searchsorted(bounds, xs, side="right") - 1
+    P0 = preset_col(W)
+    cut = res > 0
+    first = (np.cumsum(cpc) - cpc)[cut]
+    meta[heads[cut], P0] = -res[cut]
+    meta[heads[cut], P0 + 1] = cps[first, 0]
+    cost[heads] -= res
+    # per preset lane: its list, its run's first residual index, its end
+    lst = np.repeat(np.arange(len(xs)), cpc)
+    bit, val, cnt = cps[:, 0], cps[:, 1], cps[:, 2]
+    k0 = np.cumsum(cnt) - cnt
+    k0 -= np.repeat(k0[first], cpc[cut])
+    more = np.zeros(len(cps), dtype=bool)
+    more[:-1] = lst[1:] == lst[:-1]
+    end = np.where(more, np.roll(bit, -1), offsets[xs[lst] + 1])
+    h = heads[lst]
+    pm = np.zeros((len(cps), meta.shape[1]), dtype=np.int64)
+    pm[:, M_NODES] = 1
+    pm[:, M_BIT] = bit
+    pm[:, M_X] = xs[lst] + node_base
+    pm[:, M_WCUR0] = halo[h] + k0
+    pm[:, M_BASE] = store_off[h]
+    pm[:, M_SEG] = halo[h] + k0 + cnt
+    pm[:, M_WIN] = end - bit
+    pm[:, M_WIN + W + 1] = more
+    pm[:, P0] = cnt
+    pm[:, P0 + 1] = val + node_base
+    # lists with copies or intervals: merged after the decode
+    mg = cut & (outd[xs] > res)
+    d_m = outd[xs[mg]]
+    base = np.zeros(len(d_m) + 1, dtype=np.int64)
+    np.cumsum(d_m, out=base[1:])
+    dev = torch.device(device)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)
+                                ).to(dev)
+    split = SplitPlan(
+        nodes=xs, heads=heads, res=res, seg_head=h, seg_wcur=pm[:, M_SEG],
+        seg_head_t=up(h), seg_wcur_t=up(pm[:, M_SEG]).to(torch.int32),
+        merge_row0=up(store_off[heads[mg]] + halo[heads[mg]]),
+        merge_res=up(res[mg]), merge_base=up(base),
+        merge_tile=up(np.searchsorted(base, np.arange(0, base[-1], 256),
+                                      side="right") - 1).to(torch.int32),
+        merge_rows=int(base[-1]))
+    return (np.concatenate([meta, pm]), np.concatenate([cost, cnt]), split)

@@ -31,7 +31,8 @@ import torch
 
 from .. import native as _native
 from ..device import require_cuda
-from ..ops.kdecode import M_BASE, _check_lane_table, decode_lanes
+from ..ops.kdecode import (DIAG_ROWS, M_BASE, _check_lane_table,
+                           decode_lanes, lane_rows, merge_split)
 from .multihost import shard_bounds
 
 __all__ = ["make_mesh", "decode_sharded", "decode_sharded_kernel"]
@@ -67,14 +68,15 @@ def decode_sharded_kernel(plan, devices):
 
     The lanes split into contiguous shares balanced by store rows, one per
     device; a device gets a copy of the stream (one per distinct device),
-    its lanes' table with the segment bases rebased to its share, its
-    segment of the store and the plan's lane order restricted to its
-    lanes.  B1 runs once per non-empty share, every share launched before
-    anything synchronises.  The segments are copied back into
-    ``plan.store`` and the diagnostics concatenated in lane order on the
-    plan's device.  Returns (``plan.store``, diagnostics), which
-    ``kdecode.check_diag`` and ``kcompact.compact`` take as after
-    ``kdecode.decode_chunked``.  A cold plan must be resolved first
+    its lanes' table (with the preset lanes of the split lists it heads)
+    with the segment bases rebased to its share, its segment of the store
+    and the plan's lane order restricted to its lanes.  B1 runs once per
+    non-empty share, every share launched before anything synchronises.
+    The segments are copied back into ``plan.store``, the split lists that
+    need it merged (``kdecode.merge_split``), and the diagnostics put in
+    lane-table order on the plan's device.  Returns (``plan.store``,
+    diagnostics), which ``kdecode.check_diag`` and ``kcompact.compact``
+    take as after ``kdecode.decode_chunked``.  A cold plan must be resolved first
     (``resolve.resolve_halos``): ValueError otherwise."""
     if plan.cold and not plan.resolved:
         raise ValueError("an unresolved cold plan: run "
@@ -84,6 +86,7 @@ def decode_sharded_kernel(plan, devices):
     lane_b = shard_bounds(so, len(devs))
     order = plan.order.cpu().numpy()
     W = plan.spec.window_size
+    rows_all = plan.meta.shape[0]
     words = {}
     shares = []
     # every share's inputs, checked, before the first launch: the checks
@@ -93,22 +96,31 @@ def decode_sharded_kernel(plan, devices):
             continue
         if dev not in words:
             words[dev] = plan.words.to(dev)
-        meta = plan.meta[a:b].to(dev, copy=True)
+        rows = lane_rows(plan, a, b)
+        rows_t = torch.from_numpy(rows).to(plan.meta.device)
+        meta = plan.meta[rows_t].to(dev, copy=True)
         meta[:, M_BASE] -= int(so[a])
         seg = plan.store[int(so[a]):int(so[b])].to(dev, copy=True)
-        mine = order[(order >= a) & (order < b)] - a
-        own = torch.from_numpy(mine.astype(np.int32)).to(dev)
+        at = np.full(rows_all, -1, dtype=np.int64)
+        at[rows] = np.arange(len(rows))
+        mine = at[order]
+        own = torch.from_numpy(mine[mine >= 0].astype(np.int32)).to(dev)
         _check_lane_table(meta, seg, W, own)
-        shares.append((dev, a, b, meta, seg, own))
+        shares.append((dev, a, b, rows_t, meta, seg, own))
     diags = []
-    for dev, _a, _b, meta, seg, own in shares:
+    for dev, _a, _b, _r, meta, seg, own in shares:
         with _on_device(dev):
             diags.append(decode_lanes(words[dev], meta, seg, plan.spec, own))
-    for (_d, a, b, _m, seg, _o) in shares:
-        plan.store[int(so[a]):int(so[b])].copy_(seg)
+    diag = torch.empty((rows_all, DIAG_ROWS), dtype=torch.int32,
+                       device=plan.device)
     # a plan has lanes, and shard_bounds gives the last share whatever the
-    # others leave: at least one share
-    return plan.store, torch.cat([d.to(plan.device) for d in diags])
+    # others leave: every lane is in one share
+    for (_d, a, b, rows_t, _m, seg, _o), dg in zip(shares, diags):
+        plan.store[int(so[a]):int(so[b])].copy_(seg)
+        diag[rows_t.to(plan.device)] = dg.to(plan.device)
+    if plan.split is not None:
+        merge_split(plan.split, plan.store)
+    return plan.store, diag
 
 
 def decode_sharded(data, offsets, settings, devices,
