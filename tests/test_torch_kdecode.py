@@ -22,6 +22,7 @@ from webgraph_tpu_torch.ops import kcompact as PKC
 from webgraph_tpu_torch.ops import kdecode as PK
 from webgraph_tpu_torch.ops import kplan as PP
 from webgraph_tpu_torch.ops.resolve import resolve_halos
+from webgraph_tpu_torch.utils.synth import synthesize_webgraph
 
 from . import torch_edge_cases as E
 from .graphs import (complete_binary_intree, complete_binary_outtree,
@@ -436,8 +437,50 @@ def test_split_counters():
     over = np.flatnonzero(outd > kw["split_arcs"])
     hp = PN.hub_parse(graph, over, offsets[over], outd, s, kw["seg_arcs"],
                       PP.SEG_BITS)
+    steps = int(PK.decode_chunked(plan)[:, PK.DIAG_STEPS].max())
     assert c == {"plan.split_lists": len(over),
                  "plan.split_segments": len(hp["cps"]),
                  "plan.split_merged": sp.merged,
-                 "b1.split_arcs": 2 * int(hp["res_cnt"].sum())}
+                 "b1.split_arcs": 2 * int(hp["res_cnt"].sum()),
+                 "b1.lane_steps": 2 * steps}
     assert len(over) == 3 and 0 < sp.merged < 3
+
+
+def _gap_coded():
+    """A crawl under the gap-coded setting (window 0, no intervals, delta
+    residuals), planned cold: no halo, no preset lane."""
+    co, su = E.simple(*synthesize_webgraph(3000, seed=6))
+    s = BVGraphSettings(window_size=0, min_interval_length=0,
+                        residual_coding=C.DELTA)
+    graph, _gb, offs, _ob, _st = PN.bv_encode(co, su, s, threads=1)
+    offsets = PN.decode_offset_stream(offs, len(co) - 1, s.offset_coding)
+    return PP.plan_kernel_decode(offsets, np.diff(co), s, graph, device=CPU)
+
+
+def _split_plan():
+    co, su, s, kw, graph, offsets, outd = E.build_split("adjacent")
+    plan = PP.plan_kernel_decode(offsets, outd, s, graph, device=CPU, **kw)
+    assert plan.meta.shape[0] > plan.lanes        # preset lanes
+    return plan
+
+
+@pytest.mark.parametrize("make", [_split_plan, _gap_coded])
+def test_lane_steps_counter(make):
+    """``b1.lane_steps``: each ``decode_to_csr`` call's largest
+    ``DIAG_STEPS`` over every lane of ``decode_chunked`` (the preset
+    lanes too), counted while a profiler records and not without one."""
+    from torch.profiler import ProfilerActivity, profile
+    from webgraph_tpu_torch.utils import trace as T
+    plan = make()
+    T.reset_counters()
+    PC.decode_to_csr(plan)
+    assert T.counters() == {}
+    steps = PK.decode_chunked(plan)[:, PK.DIAG_STEPS]
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            PC.decode_to_csr(plan)
+    c = T.counters()
+    T.reset_counters()
+    assert c["b1.lane_steps"] == 3 * int(steps.max()) > 0
+    if plan.split is not None:
+        assert int(steps[plan.lanes:].max()) > 0

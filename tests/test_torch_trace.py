@@ -7,6 +7,7 @@
   only when a lane is flagged;
 - every HyperBall round is one ``wg.hyperball.round.<mode>``, in the order
   of ``mode_history``, and ``hyperball.arcs`` counts ``arcs_touched``;
+- ``b1.lane_steps`` adds each ``decode_to_csr`` call's longest lane;
 - with no profiler running nothing is counted and ``report`` keeps its keys;
 - the benchmark's readers of these spans and counters read them.
 """
@@ -220,6 +221,18 @@ def test_merged_arcs_reader_on_traced_runs():
     _, tr = capture(window, CPU)
     got = load_module("layers", "merged_arcs_per_run").read(_ctx(tr, 2))
     assert got == sum(runs) / 2 / 1e9 > 0
+
+
+def test_lane_steps_reader_on_traced_calls(basename):
+    plan = _plan(basename)
+    steps = int(csr.decode_chunked(plan)[:, csr.DIAG_STEPS].max())
+    T.reset_counters()
+    _, tr = capture(lambda: [csr.decode_to_csr(plan) for _ in range(3)], CPU)
+    got = load_module("layers", "longest_lane_steps").read(_ctx(tr, 3))
+    T.reset_counters()
+    assert got == steps > 0
+    assert load_module("layers", "longest_lane_steps").read(_ctx(tr, 3)) \
+        is None
 
 
 def test_csr_idle_reader_on_a_known_trace():

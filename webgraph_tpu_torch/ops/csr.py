@@ -20,10 +20,10 @@ import torch
 
 from .. import native as _native
 from ..core.graph import expand_ranges
-from ..utils.trace import span
+from ..utils.trace import count, recording, span
 
 from .kcompact import compact, plan_compact
-from .kdecode import LanePlan, decode_chunked, lanes_flagged
+from .kdecode import DIAG_STEPS, LanePlan, decode_chunked, lanes_flagged
 from .resolve import resolve_halos
 
 
@@ -98,7 +98,12 @@ def decode_to_csr(plan: LanePlan):
     (an unresolved cold plan), ``wg.csr.index`` (the first call),
     ``wg.b1`` (B1's launch), ``wg.csr.flags`` (the flag check and its
     sync), ``wg.b2`` (B2 and its output) and ``wg.csr.fill`` (flagged
-    lanes only)."""
+    lanes only).
+
+    Counter ``b1.lane_steps``: B1's longest lane, its ``DIAG_STEPS`` (the
+    preset lanes' too), a call.  It comes to the host in the flag check's
+    one read, and only while a profiler records, so an untraced call reads
+    the flag alone."""
     with span("decode_to_csr"):
         if plan.cold and not plan.resolved:
             with span("resolve"):
@@ -110,7 +115,13 @@ def decode_to_csr(plan: LanePlan):
             diag = decode_chunked(plan)
         with span("csr.flags"):
             flagged = lanes_flagged(plan, diag)
-            bad = flagged.cpu().numpy() if bool(flagged.any()) else None
+            if recording():
+                anyf, steps = torch.stack((flagged.any().to(diag.dtype),
+                                           diag[:, DIAG_STEPS].amax())).tolist()
+                count("b1.lane_steps", steps)
+            else:
+                anyf = bool(flagged.any())
+            bad = flagged.cpu().numpy() if anyf else None
             cp = plan.compact_plan
             if bad is not None:
                 cp.valid = (~flagged).to(torch.uint8)

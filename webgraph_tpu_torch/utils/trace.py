@@ -28,7 +28,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["span", "count", "counters", "reset_counters"]
+__all__ = ["span", "count", "counters", "recording", "reset_counters"]
 
 PREFIX = "wg."
 
@@ -64,6 +64,11 @@ class span:
         if self._range is not None:
             self._range.__exit__(*exc)
         return False
+
+
+def recording() -> bool:
+    """Whether a profiler records: a count would add now."""
+    return _recording()
 
 
 def count(name: str, n: int = 1) -> None:
