@@ -10,8 +10,8 @@ rank processes and over listed devices, then the analytics over it
 components, geometric centrality, statistics) -- at uk-2002
 scale (18.5M nodes, ~355M arcs of a synthetic web graph), holding the
 main path's hand-written CUDA kernels (B1 in its two builds, the split
-lists' merge, B2, HyperBall's merge and the EF decode) against their plain
-PyTorch versions on the card; and the
+lists' merge, B2, HyperBall's merge and estimate and the EF decode)
+against their plain PyTorch versions on the card; and the
 probe path -- every probe of the JAX package's ``experiments/`` ported to
 a CUDA kernel in ``webgraph_tpu_torch/experiments/`` -- at the probes'
 own shapes.
@@ -47,8 +47,12 @@ Phases, each printing one line:
    node in ten and the longest list) with int32 and int64 ids, each timed
    beside its plain twin, and the library path the round ran before the
    kernel (a gather and ``scatter_reduce_`` over a prebuilt source index)
-   timed and held equal; and the CSR bit-exact against the native
-   sequential decoder;
+   timed and held equal; HyperBall's estimate (``estimate_rows``, one
+   launch of ``csrc/hyperball.cu``'s ``hyperball_estimate``) of that dense
+   round's changed rows and of every row, held bit for bit to
+   ``estimate_rows_plain``, timed beside its bound, its twin and one
+   ``estimate_counts_device`` call; and the CSR bit-exact against the
+   native sequential decoder;
 6. hubs: a 1,000,000-node synthetic whose nodes 0, 250,000, 500,000 and
    750,000 hold seeded-random lists of 131,072 to 786,432 successors,
    stored single-stream in ``.hubs_smoke_*/`` under the checkout (removed
@@ -172,9 +176,11 @@ Phases, each printing one line:
    to the generator on the kernel route -- then the whole basename through
    ``load_csr``, equal to the generator or raising before any launch.
 
-Then one JSON line of the kernels (the six main-path kernels and the 23
+Then one JSON line of the kernels (the seven main-path kernels and the 23
 probe sites, each with its launches, times, bound and library time; the
-merge's at log2m 6 and bound by each row read once; the EF decode's at the
+merge's at log2m 6 and bound by each row read once; the estimate's times
+at a dense round's changed rows of the slice, its launches those of the
+analytics phase, whose HyperBall run launches it; the EF decode's at the
 slice, from the files phase; B1's split build and the split lists' merge
 at Graph500's graph, from the hubs phase), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -239,6 +245,10 @@ KERNELS = {
     "hyperball_merge": dict(source="webgraph_tpu_torch/csrc/hyperball.cu",
                             replaces="none (webgraph_tpu/algo/hyperball.py:"
                             "296, device_round, is an XLA program)"),
+    "hyperball_estimate": dict(
+        source="webgraph_tpu_torch/csrc/hyperball.cu",
+        replaces="none (webgraph_tpu/algo/hyperball.py:84, "
+        "estimate_counts, is numpy)"),
     "ef_decode": dict(source="webgraph_tpu_torch/csrc/ef_decode.cu",
                       replaces="none (webgraph_tpu/ops/efdecode.py:102, "
                       "_ef_decode_device, is an XLA program)"),
@@ -659,9 +669,50 @@ def _slice_merge(g, regs0, regs1, errors: Errors) -> dict:
     if not torch.equal(library(), HB.merge_rows(g.offsets, g.succ, regs)[0]):
         raise AssertionError("the library path differs from hyperball_merge")
     out["library_ms"] = min(cuda_ms(library) for _ in range(2))
-    del src, regs
+    del src
+    new, ch = HB.merge_rows(g.offsets, g.succ, regs)
+    del regs
+    torch.cuda.empty_cache()
+    out["estimate"] = _slice_estimate(new, torch.nonzero(ch).squeeze(1),
+                                      errors)
+    del new, ch
     torch.cuda.empty_cache()
     return out
+
+
+def _slice_estimate(regs, nodes, errors: Errors) -> dict:
+    """HyperBall's count estimate (``estimate_rows``, one launch of
+    ``hyperball_estimate``) of a round's changed rows and of every row,
+    held whole against ``estimate_rows_plain``: every count bit for bit
+    (the float64 patterns' difference as int64).  Timed on the changed rows
+    by CUDA events beside its bound (the row, its id and its count read or
+    written once), the plain twin (host clock) and one
+    ``estimate_counts_device`` call over the gathered rows (the library
+    path of the rounds before the kernel)."""
+    before = _build.LAUNCHES["hyperball_estimate"]   # the checks' own
+    for what, nd in (("a round's changed rows", nodes), ("every row", None)):
+        got = HB.estimate_rows(regs, nd)
+        exp = HB.estimate_rows_plain(regs, nd)
+        errors.check("hyperball_estimate", what, got.view(torch.int64),
+                     exp.view(torch.int64))
+    del got, exp
+    launches = _build.LAUNCHES["hyperball_estimate"] - before
+    if launches != 2:
+        raise AssertionError(f"two estimates launched {launches} kernels")
+    ms = min(cuda_ms(lambda: HB.estimate_rows(regs, nodes), reps=5,
+                     warmup=1) for _ in range(3))
+    HB.estimate_rows_plain(regs, nodes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    HB.estimate_rows_plain(regs, nodes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    library_ms = min(cuda_ms(lambda: HB.estimate_counts_device(regs[nodes]))
+                     for _ in range(2))
+    k, row = nodes.numel(), regs.shape[1]
+    nbytes = k * (row + 16)
+    return dict(rows=k, log2m=row.bit_length() - 1, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes=nbytes, bound=bound(nbytes))
 
 
 def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
@@ -822,9 +873,11 @@ def phase_slice(dev, errors: Errors, n_nodes: int) -> tuple:
         hyperball_merge=merge,
         bounds={"bv_decode_lanes": bound(b1_bytes),
                 "compact_runs": bound(b2_bytes),
-                "hyperball_merge": bound(merge["dense"]["bytes"]["once"])},
+                "hyperball_merge": bound(merge["dense"]["bytes"]["once"]),
+                "hyperball_estimate": merge["estimate"]["bound"]},
         library_ms={"bv_decode_lanes": None, "compact_runs": library_ms,
-                    "hyperball_merge": merge["library_ms"]},
+                    "hyperball_merge": merge["library_ms"],
+                    "hyperball_estimate": merge["estimate"]["library_ms"]},
         bit_exact=True)
 
 
@@ -2746,18 +2799,23 @@ def phase_analytics(dev, graph, hco, hsu) -> dict:
     hb = steps.run("hyperball_init", lambda: A.HyperBall(
         g, log2m=HB_LOG2M, seed=1, gt=gt, do_sum_of_distances=True,
         do_sum_of_inverse_distances=True))
+    # the constructor's estimate of every node: one launch since the reset
+    if _build.LAUNCHES["hyperball_estimate"] != 1:
+        raise AssertionError("HyperBall's init launched hyperball_estimate "
+                             f"{_build.LAUNCHES['hyperball_estimate']} times")
     xs = np.sort(rng.choice(n, SAMPLE, replace=False))
     lists = [hsu[hco[x]:hco[x + 1]] for x in xs]
     need = np.unique(np.concatenate([xs] + lists))
     need_t, xs_t = (torch.from_numpy(a).to(dev) for a in (need, xs))
     at_x = np.searchsorted(need, xs)
     at_succ = [np.searchsorted(need, ys) for ys in lists]
-    round_s, round_profile, merges = [], None, []
+    round_s, round_profile, merges, estimates = [], None, [], []
     torch.cuda.reset_peak_memory_stats()
     while True:
         prev = hb.regs[need_t].cpu().numpy()
         torch.cuda.synchronize()
         before = _build.LAUNCHES["hyperball_merge"]
+        est_before = _build.LAUNCHES["hyperball_estimate"]
         t0 = time.perf_counter()
         if hb.iteration == 1:   # round 2, dense, under the profiler
             round_profile = profile_window(hb.iterate)
@@ -2771,6 +2829,11 @@ def phase_analytics(dev, graph, hco, hsu) -> dict:
                                 or hb.mode_history[-1] == "dense"):
             raise AssertionError(f"HyperBall round {hb.iteration} launched "
                                  f"hyperball_merge {merges[-1]} times")
+        # one estimate launch a round with a changed counter
+        estimates.append(_build.LAUNCHES["hyperball_estimate"] - est_before)
+        if estimates[-1] != int(hb.modified > 0):
+            raise AssertionError(f"HyperBall round {hb.iteration} launched "
+                                 f"hyperball_estimate {estimates[-1]} times")
         cur = hb.regs[xs_t].cpu().numpy()
         for i, x in enumerate(xs):
             w = prev[at_x[i]]
@@ -2791,7 +2854,7 @@ def phase_analytics(dev, graph, hco, hsu) -> dict:
         seconds=sum(round_s), peak_bytes=torch.cuda.max_memory_allocated(),
         log2m=HB_LOG2M, rounds=hb.iteration, round_s=round_s,
         mode_history=hb.mode_history, arcs_touched=hb.arcs_touched,
-        merge_launches=merges, nf=nf, effective_diameter=A.effective_diameter(nf, 0.9),
+        merge_launches=merges, estimate_launches=estimates, nf=nf, effective_diameter=A.effective_diameter(nf, 0.9),
         sampled_nodes=SAMPLE, round2_profile=round_profile)
     del hb, sums, prev, cur
 
@@ -3156,7 +3219,8 @@ def main() -> int:
                                 digest=enc["slice_digest"]))
     emit("cli", phase_cli(dev, card, **ctx))
     emit("parallel", phase_parallel(dev, card, **ctx))
-    emit("analytics", phase_analytics(dev, **ctx))
+    analytics = phase_analytics(dev, **ctx)
+    emit("analytics", analytics)
     del ctx
     torch.cuda.empty_cache()
     emit("big", phase_big(dev, card))
@@ -3174,7 +3238,16 @@ def main() -> int:
              "compact_runs": (res["compact_ms"], res["compact_plain_ms"]),
              "hyperball_merge": (res["hyperball_merge"]["dense"]["ms"],
                                  res["hyperball_merge"]["dense"]["plain_ms"]),
+             "hyperball_estimate": (
+                 res["hyperball_merge"]["estimate"]["ms"],
+                 res["hyperball_merge"]["estimate"]["plain_ms"]),
              "ef_decode": (ef["ms"], ef["plain_ms"])}
+    # the estimate's launches: the analytics phase's, reset at its start
+    res["launches"]["hyperball_estimate"] = (
+        analytics["launches"]["hyperball_estimate"])
+    if res["launches"]["hyperball_estimate"] <= 0:
+        raise AssertionError("the main path never launched "
+                             "hyperball_estimate")
     res["launches"]["ef_decode"] = ef["launches"]
     res["bounds"]["ef_decode"] = ef["bound"]
     res["library_ms"]["ef_decode"] = None

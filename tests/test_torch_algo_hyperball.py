@@ -6,6 +6,10 @@ Registers, ``mode_history``, ``arcs_touched``, ``modified`` and
 the distance sums are float64 sums in another order: ``rtol = 1e-12``.
 Within the port, what the JAX tests assert exactly (external NF against a
 standard run, a resumed run against an unbroken one) is asserted exactly.
+
+The count estimate's wrapper, ``estimate_rows``, runs its plain twin on
+CPU tensors: it equals ``estimate_counts_device`` of the gathered rows
+exactly, and the JAX package's numpy ``estimate_counts`` at ``rtol``.
 """
 
 import numpy as np
@@ -19,6 +23,7 @@ from webgraph_tpu_torch import state
 from webgraph_tpu_torch.algo import hyperball as PHB
 from webgraph_tpu_torch.core.graph import CSRGraph
 
+from . import torch_hyperball_cases as H
 from .graphs import cycle_graph, erdos_renyi
 
 torch.set_num_threads(1)
@@ -258,3 +263,113 @@ def test_estimate_counts_device_matches_numpy():
     np.testing.assert_allclose(
         PHB.estimate_counts_device(torch.from_numpy(regs)).numpy(),
         J.estimate_counts(regs), rtol=RTOL, atol=0)
+
+
+# -- the count estimate's wrapper on CPU tensors ----------------------------
+
+EST_N = 900
+
+
+@pytest.mark.parametrize("log2m", H.LOG2MS)
+def test_estimate_rows_equals_the_library_estimate(log2m):
+    top = min(46, H.exact_top(log2m))
+    regs = torch.from_numpy(H.counters(EST_N, log2m, top, seed=log2m))
+    nodes = torch.from_numpy(H.node_list(EST_N, seed=log2m))
+    rev = nodes.flip(0).contiguous()
+    for nd in (nodes, rev):
+        got = PHB.estimate_rows(regs, nd)
+        assert got.dtype == torch.float64 and got.shape == (nd.numel(),)
+        assert torch.equal(got, PHB.estimate_counts_device(regs[nd]))
+    whole = PHB.estimate_rows(regs)
+    assert torch.equal(whole, PHB.estimate_counts_device(regs))
+    np.testing.assert_allclose(whole.numpy(),
+                               J.estimate_counts(regs.numpy()), rtol=RTOL,
+                               atol=0)
+    none = PHB.estimate_rows(regs, torch.zeros(0, dtype=torch.int64))
+    assert none.dtype == torch.float64 and none.shape == (0,)
+
+
+@pytest.mark.parametrize("log2m", H.LOG2MS)
+def test_estimate_rows_small_range_and_the_highest_registers(log2m):
+    """Rows of zeros take the small-range branch (a count of 0); registers
+    up to 64 - log2m + 1, the most ``hyperloglog_init`` writes."""
+    top = 64 - log2m + 1
+    regs = H.counters(EST_N, log2m, top, seed=log2m)
+    assert regs.max() == top and not regs[0].any()
+    t = torch.from_numpy(regs)
+    got = PHB.estimate_rows(t)
+    assert torch.equal(got, PHB.estimate_counts_device(t))
+    np.testing.assert_allclose(got.numpy(), J.estimate_counts(regs),
+                               rtol=RTOL, atol=0)
+    assert float(got[0]) == 0.0
+    m = 1 << log2m
+    small = (regs == 0).any(1) & (got.numpy() <= 2.5 * m)
+    assert small[1::4].any() and (~small[3::4]).any()
+
+
+def test_estimate_rows_rejects_what_the_kernel_does_not_take():
+    regs = torch.from_numpy(H.counters(50, 4, 46))
+    nodes = torch.arange(5, dtype=torch.int64)
+    bad = [
+        (regs.to(torch.int16), nodes),
+        (regs[:, :12].contiguous(), nodes),
+        (regs[:, ::2], nodes),
+        (regs[0], None),
+        (regs, nodes.to(torch.int32)),
+        (regs, torch.zeros(5, dtype=torch.int64, device="meta")),
+        (regs, nodes[::2]),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            PHB.estimate_rows(*args)
+
+
+@pytest.mark.parametrize("bad_id", [EST_N, 1 << 40])
+def test_estimate_rows_refuses_an_id_past_the_rows_on_the_cpu(bad_id):
+    """An id >= n is refused on CPU tensors (the card does not check ids;
+    the wrapper asks for ids in [0, n))."""
+    regs = torch.from_numpy(H.counters(EST_N, 4, 46))
+    nodes = torch.tensor([0, bad_id, 3], dtype=torch.int64)
+    with pytest.raises(IndexError):
+        PHB.estimate_rows(regs, nodes)
+
+
+@pytest.mark.parametrize("external_chunk", [0, 64])
+def test_estimate_on_the_cpu_runs_the_library_estimate(monkeypatch,
+                                                       external_chunk):
+    """``_estimate`` reaches ``estimate_counts_device`` through the module,
+    by name, in both modes: a patch there lands in the counts."""
+    g = port(erdos_renyi(120, 0.05, seed=9))
+    real, rows = PHB.estimate_counts_device, []
+
+    def doubled(regs):
+        rows.append(regs.shape[0])
+        return real(regs) * 2
+
+    plain = P.HyperBall(g, log2m=4, seed=1, external_chunk=external_chunk)
+    monkeypatch.setattr(PHB, "estimate_counts_device", doubled)
+    hb = P.HyperBall(g, log2m=4, seed=1, external_chunk=external_chunk)
+    assert rows == [120]
+    assert torch.equal(hb.reachable_counts(), 2 * plain.reachable_counts())
+    hb.iterate()
+    assert len(rows) == 2 and rows[1] == hb.modified > 0
+
+
+@pytest.mark.parametrize("log2m", H.LOG2MS)
+def test_external_counts_equal_the_resident_run(tmp_path, log2m):
+    g = port(erdos_renyi(150, 0.04, seed=log2m))
+    gt = g.transpose()
+    resident = P.HyperBall(g, log2m=log2m, seed=2, gt=gt,
+                           do_sum_of_distances=True)
+    external = P.HyperBall(g, log2m=log2m, seed=2, gt=gt,
+                           do_sum_of_distances=True, external_chunk=40,
+                           regs_path=str(tmp_path / "r.npy"))
+    assert torch.equal(external.reachable_counts(),
+                       resident.reachable_counts())
+    resident.run()
+    external.run()
+    np.testing.assert_array_equal(regs_of(external), regs_of(resident))
+    assert torch.equal(external.reachable_counts(),
+                       resident.reachable_counts())
+    assert external.neighbourhood_function == resident.neighbourhood_function
+    assert torch.equal(external.sum_of_distances, resident.sum_of_distances)

@@ -456,6 +456,119 @@ def test_hyperball_merge_on_a_crawl_of_uk2002_scale(cuda):
         regs = out
 
 
+# -- HyperBall's estimate kernel against the library estimate ---------------
+
+EST_N = 6000
+
+
+def _estimate_on_card(cuda, regs, nodes=None):
+    """estimate_rows on the card (one launch; none for k = 0) and
+    estimate_counts_device over the gathered rows on the card."""
+    r = regs.to(cuda)
+    nd = None if nodes is None else nodes.to(cuda)
+    before = _build.LAUNCHES["hyperball_estimate"]
+    got = PHB.estimate_rows(r, nd)
+    k = r.shape[0] if nd is None else nd.numel()
+    assert _build.LAUNCHES["hyperball_estimate"] == before + (k > 0)
+    want = PHB.estimate_counts_device(r if nd is None else r[nd])
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == torch.float64 and got.shape == (k,)
+    return got, want
+
+
+@pytest.mark.parametrize("log2m", MERGE_LOG2MS)
+def test_hyperball_estimate_kernel_equals_the_library(cuda, log2m):
+    """Registers <= min(46, 53 - log2m), where a row's sum is exact in any
+    order: every count bit for bit, for a sorted and an unsorted node list,
+    every row, and no row."""
+    top = min(46, H.exact_top(log2m))
+    regs = torch.from_numpy(H.counters(EST_N, log2m, top, seed=log2m))
+    nodes = torch.from_numpy(H.node_list(EST_N, seed=log2m))
+    perm = torch.from_numpy(np.random.default_rng(log2m).permutation(EST_N))
+    for nd in (nodes, perm, None, torch.zeros(0, dtype=torch.int64)):
+        got, want = _estimate_on_card(cuda, regs, nd)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("log2m", H.LOG2MS)
+def test_hyperball_estimate_kernel_highest_registers(cuda, log2m):
+    """Registers up to 64 - log2m + 1, the most hyperloglog_init writes:
+    above 53 - log2m the sum's order may move the last bits, so rtol
+    1e-12."""
+    top = 64 - log2m + 1
+    assert top > H.exact_top(log2m)
+    regs = torch.from_numpy(H.counters(EST_N, log2m, top, seed=log2m))
+    assert int(regs.max()) == top
+    got, want = _estimate_on_card(cuda, regs)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 4, 8])
+def test_hyperball_estimate_kernel_rows_off_16_bytes(cuda, shift):
+    regs = torch.from_numpy(H.counters(EST_N, 6, 46))
+    buf = torch.empty(regs.numel() + 16, dtype=torch.uint8, device=cuda)
+    view = buf[shift:shift + regs.numel()].view(EST_N, 64)
+    view.copy_(regs)
+    assert view.data_ptr() % 16 == shift % 16
+    nodes = torch.from_numpy(H.node_list(EST_N)).to(cuda)
+    got = PHB.estimate_rows(view, nodes)
+    assert torch.equal(got, PHB.estimate_counts_device(view[nodes]))
+
+
+@pytest.mark.parametrize("mode", ["dense", "sparse", "external"])
+def test_hyperball_estimates_launch_once_a_call(cuda, monkeypatch, mode):
+    """Each ``_estimate`` call with rows launches the kernel once (external
+    mode: once an uploaded block), counts its rows in
+    ``hyperball.est_rows``, and never reaches the library estimate; the
+    registers equal the CPU run's and the NF matches it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from webgraph_tpu_torch.core.graph import CSRGraph
+    from webgraph_tpu_torch.utils import trace as TT
+    co, su = H.crawl(1500, seed=4)
+    kw = dict(log2m=6, seed=5)
+    cpu_g = CSRGraph(co, su, device="cpu")
+    if mode != "dense":
+        kw["gt"] = cpu_g.transpose()
+    if mode == "external":
+        kw["external_chunk"] = 2000
+    ref = PHB.HyperBall(cpu_g, **kw)
+    ref.run()
+
+    def never(*args, **kw):
+        raise AssertionError("the library estimate ran on a CUDA tensor")
+
+    monkeypatch.setattr(PHB, "estimate_counts_device", never)
+    monkeypatch.setattr(PHB, "estimate_rows_plain", never)
+    calls, real = [], PHB.HyperBall._estimate
+
+    def listed(self, nodes):
+        calls.append(self.g.num_nodes if nodes is None else nodes.numel())
+        return real(self, nodes)
+
+    monkeypatch.setattr(PHB.HyperBall, "_estimate", listed)
+    g = CSRGraph(co, su, device=cuda)
+    if mode != "dense":
+        kw["gt"] = g.transpose()
+    before = _build.LAUNCHES["hyperball_estimate"]
+    TT.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        hb = PHB.HyperBall(g, **kw)
+        hb.run()
+        torch.cuda.synchronize()
+    assert calls[0] == 1500 and len(calls) == hb.iteration
+    assert (_build.LAUNCHES["hyperball_estimate"] - before
+            == sum(k > 0 for k in calls))
+    assert TT.counters()["hyperball.est_rows"] == sum(calls)
+    got = np.asarray(hb.regs) if mode == "external" else hb.regs.cpu()
+    want = np.asarray(ref.regs) if mode == "external" else ref.regs
+    assert np.array_equal(np.asarray(got), np.asarray(want))
+    assert hb.mode_history == ref.mode_history
+    _same(ref.neighbourhood_function, hb.neighbourhood_function)
+    _same(ref.reachable_counts(), hb.reachable_counts())
+
+
 # -- the file entries on the card against the same entries on the CPU -------
 
 

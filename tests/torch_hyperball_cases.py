@@ -9,7 +9,11 @@ distinct arcs (node 3; n - 1 where n is smaller), repeated successors, and
 short runs of nearby ids otherwise.  ``registers`` are random uint8 rows,
 so every byte of a row can win a max, and a share of rows that already hold
 their successors' maxima, so some nodes do not change.  ``merge_reference`` is a node-by-node numpy
-merge.
+merge.  ``counters`` are rows for HyperBall's count estimate
+(``algo.hyperball.estimate_rows``): rows of zeros, nearly empty rows (the
+small-range branch), rows as HyperLogLog fills them, and uniform rows, every
+register at most ``top``; ``exact_top(log2m)`` is the highest register for
+which a row's float64 sum of 2^-r is exact in any order.
 """
 
 from __future__ import annotations
@@ -69,3 +73,26 @@ def node_list(n: int, seed: int = 0) -> np.ndarray:
     pick = rng.random(n) < 0.11
     pick[[HUB, 0, n - 1]] = True
     return np.flatnonzero(pick).astype(np.int64)
+
+
+def exact_top(log2m: int) -> int:
+    """53 - log2m: each partial sum of 2^-r over a row is then a multiple of
+    2^-top no larger than 2^log2m, 53 bits at most."""
+    return 53 - log2m
+
+
+def counters(n: int, log2m: int, top: int, seed: int = 0) -> np.ndarray:
+    """uint8 (n, 2^log2m), every register <= ``top``.  Row i by i % 4: all
+    zeros; zeros but for a few registers <= 3 (the small-range branch);
+    1 + a geometric(1/2) count, as HyperLogLog fills a counter; uniform in
+    [0, top].  Row 5 holds ``top`` in its last register."""
+    rng = np.random.default_rng(seed + 3)
+    m = 1 << log2m
+    regs = np.zeros((n, m), dtype=np.int64)
+    few = rng.random((n, m)) < 2.0 / m
+    regs[1::4] = np.where(few, rng.integers(1, 4, size=(n, m)), 0)[1::4]
+    regs[2::4] = rng.geometric(0.5, size=(n, m))[2::4]
+    regs[3::4] = rng.integers(0, top + 1, size=(n, m))[3::4]
+    if n > 5:
+        regs[5, -1] = top
+    return np.minimum(regs, top).astype(np.uint8)

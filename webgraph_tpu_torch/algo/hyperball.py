@@ -6,7 +6,7 @@ Counterpart of ``webgraph_tpu/algo/hyperball.py``: ``hyperloglog_init`` and
 ``effective_diameter`` (``:649``).  The host functions are numpy copies of
 the JAX module's (that module imports jax); ``hyperloglog_init`` and
 ``estimate_counts`` are the plain references of their ``_device``
-versions, which the class runs.
+versions.
 
 A round is c'[x] = max(c[x], max over successors y of c[y]) on uint8
 registers (HyperBall.java:654-900).  ``merge_rows`` computes it for a list
@@ -14,9 +14,13 @@ of nodes: on the card one launch of ``csrc/hyperball.cu``, a segmented
 byte-max over each node's successor rows; on the CPU its plain twin
 ``merge_rows_plain``, a gather of the successors' rows and a scatter-max
 into their sources (in the JAX package the round is an XLA program of that
-gather and scatter, not a Pallas kernel).  The JAX package's packed-u32
-``DenseRoundPlan`` is a TPU layout and has no counterpart; its power-of-two
-padding exists for XLA's static shapes and has none either.
+gather and scatter, not a Pallas kernel).  ``estimate_rows`` counts listed
+rows: on the card one launch of the same file's ``hyperball_estimate``,
+which reads each row where it lies; on the CPU its plain twin
+``estimate_rows_plain``, ``estimate_counts_device`` over gathered rows.
+The JAX package's packed-u32 ``DenseRoundPlan`` is a TPU layout and has no
+counterpart; its power-of-two padding exists for XLA's static shapes and
+has none either.
 
 The class keeps registers, counts, the modified mask and the distance sums
 on the graph's device; the must-check set of a systolic or local round, the
@@ -37,15 +41,17 @@ from ..ops import _build
 from ..utils.trace import count, span
 
 __all__ = ["HyperBall", "hyperloglog_init", "hyperloglog_init_device",
-           "estimate_counts", "estimate_counts_device", "merge_rows",
-           "merge_rows_plain", "device_round",
+           "estimate_counts", "estimate_counts_device", "estimate_rows",
+           "estimate_rows_plain", "merge_rows", "merge_rows_plain",
+           "device_round",
            "sequential_hyperball", "effective_diameter"]
 
 _M64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 # arcs per gather/scatter slice: bounds the (arcs, registers) transient
 ARC_SLICE = 1 << 26
-# counter rows per estimate: bounds the (rows, registers) float64 transient
+# counter rows per block of the plain estimate and of external mode's
+# upload: bounds the (rows, registers) float64 transient
 EST_ROWS = 1 << 20
 
 
@@ -142,6 +148,57 @@ def estimate_counts_device(regs: torch.Tensor) -> torch.Tensor:
     small = (est <= 2.5 * m) & (zeros > 0)
     lin = m * torch.log(m / torch.clamp(zeros, min=1e-300))
     return torch.where(small, lin, est)
+
+
+def estimate_rows(regs: torch.Tensor,
+                  nodes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Counts of the rows ``nodes`` of ``regs`` (every row when None),
+    float64[k] on their device: ``estimate_counts_device(regs[nodes])``.
+
+    ``regs``: uint8 (n, 2^log2m), ``nodes``: int64[k] ids in [0, n),
+    contiguous on one device.  CUDA tensors launch ``hyperball_estimate``
+    (``csrc/hyperball.cu``) once, which reads each row in place and adds k
+    to the counter ``hyperball.est_rows``; CPU tensors run
+    :func:`estimate_rows_plain`.  The ids are not checked on the card, as
+    that would cost a sync a call: an id outside [0, n) reads past
+    ``regs`` there, where the CPU's gather raises IndexError."""
+    dev = regs.device
+    _build.check_tensor(regs, "regs", (None, None), dtype=torch.uint8)
+    n, R = regs.shape
+    if R & (R - 1):
+        raise ValueError("regs must have 2^log2m columns")
+    if nodes is not None:
+        _build.check_tensor(nodes, "nodes", (None,), dtype=torch.int64,
+                            device=dev)
+    if dev.type == "cpu":
+        return estimate_rows_plain(regs, nodes)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    k = n if nodes is None else nodes.numel()
+    out = torch.empty(k, dtype=torch.float64, device=dev)
+    if k == 0:
+        return out
+    rc = _build.lib().wg_hyperball_estimate(
+        regs.data_ptr(), R, None if nodes is None else nodes.data_ptr(), k,
+        _alpha(R) * R * R, out.data_ptr(), _build.stream_ptr(regs))
+    _build.check(rc, "hyperball_estimate")
+    _build.LAUNCHES["hyperball_estimate"] += 1
+    count("hyperball.est_rows", k)
+    return out
+
+
+def estimate_rows_plain(regs: torch.Tensor,
+                        nodes: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The plain twin of :func:`estimate_rows`: ``estimate_counts_device``
+    over gathered rows, in blocks of EST_ROWS."""
+    k = regs.shape[0] if nodes is None else nodes.numel()
+    out = torch.empty(k, dtype=torch.float64, device=regs.device)
+    for lo in range(0, k, EST_ROWS):
+        hi = min(lo + EST_ROWS, k)
+        rows = regs[lo:hi] if nodes is None else regs[nodes[lo:hi]]
+        out[lo:hi] = estimate_counts_device(rows)
+    return out
 
 
 def _scatter_max_rows(out: torch.Tensor, dst: torch.Tensor,
@@ -295,14 +352,17 @@ class HyperBall:
 
     def _estimate(self, nodes: Optional[torch.Tensor]) -> torch.Tensor:
         """Count estimates of ``nodes`` (all when None), float64 on the
-        device, in row blocks of EST_ROWS."""
+        device: ``estimate_rows`` over the resident registers, or over
+        host rows uploaded in blocks of EST_ROWS in external mode."""
+        if not self.external_chunk:
+            return estimate_rows(self.regs, nodes)
         k = self.g.num_nodes if nodes is None else nodes.numel()
         out = torch.empty(k, dtype=torch.float64, device=self.device)
         for lo in range(0, k, EST_ROWS):
             hi = min(lo + EST_ROWS, k)
             idx = (torch.arange(lo, hi, device=self.device) if nodes is None
                    else nodes[lo:hi])
-            out[lo:hi] = estimate_counts_device(self._rows(idx))
+            out[lo:hi] = estimate_rows(self._rows(idx))
         return out
 
     # -- persistence: the JAX package's .npz keys and dtypes --------------

@@ -1,5 +1,6 @@
 // hyperball_merge: one HyperBall round's merge, a segmented byte-max over
-// each listed node's successor rows.
+// each listed node's successor rows; hyperball_estimate (at the end of the
+// file): the HyperLogLog count of each listed row.
 //
 // Replaces: no TPU kernel.  The JAX package's round (webgraph_tpu/algo/
 // hyperball.py, device_round) is an XLA program of a gather and a
@@ -258,5 +259,141 @@ extern "C" int wg_hyperball_merge(const void* off, const void* succ,
     case 4: return int(launch<4>(a, s64, st));
     case 2: return int(launch<2>(a, s64, st));
     default: return int(launch<1>(a, s64, st));
+  }
+}
+
+// hyperball_estimate: the HyperLogLog count of each listed register row,
+// in one pass over the rows where they lie.
+//
+// Replaces: no TPU kernel.  The JAX package's estimate_counts (webgraph_tpu/
+// algo/hyperball.py) is numpy; the port ran its PyTorch twin,
+// estimate_counts_device (algo/hyperball.py), over a gathered copy of the
+// rows, and an H100 trace of the uk2002.hyperball cell put ~81% of the
+// device time in its six library kernels: the gather, the uint8 -> float64
+// copy, the negation, exp2 and two row sums, each through a float64
+// (rows, 2^log2m) transient.
+//
+//   s      = sum over the row's m registers r of 2^-r     (float64)
+//   z      = the row's registers equal to 0
+//   est    = (1 / s) * c,  c = alpha(m) m^2 from the host
+//   lin    = m * log((1 / max(z, 1e-300)) * m)
+//   out[i] = lin where est <= 2.5 m and z > 0, else est
+//
+// for the row x_i = nodes[i], or i where nodes is NULL.  The arithmetic is
+// PyTorch's: a scalar divided by a tensor is the tensor's reciprocal times
+// the scalar.  2^-r is built from its exponent bits, so every term is
+// exact.  While every register of a row is at most 53 - log2m (47 at
+// log2m 6), every partial sum is a multiple of 2^-r_max no larger than
+// m = 2^log2m, which float64 holds exactly: the sum is the same in any
+// order, and so the count equals the twin's bit for bit.  Above that the
+// order of the sum may move the last bits.
+//
+// What bounds it on this card: memory.  A row is read once (2^log2m bytes
+// at log2m 6), with an 8-byte id and an 8-byte count: ~1.5 GB for every
+// node of uk-2002, ~0.44 ms at 3.35 TB/s.  What the design does about it:
+// G threads read one row as V-byte vectors (G = row bytes / V, at most 32,
+// V = 16 where the row and its pointer allow), as the merge's grouping
+// does; wider rows are read in column chunks of G vectors.  Each thread
+// sums its bytes' terms and zeros in registers, the group meets by xor
+// shuffles, and its first thread writes the count.  Nothing else is
+// written.
+
+namespace {
+
+struct EstArgs {
+  const uint8_t* regs;   // (n, R)
+  const int64_t* nodes;  // [k], or NULL: row i is i
+  int64_t k;
+  double* out;           // [k]
+  int64_t R;             // row bytes: m
+  double c;              // alpha(m) m^2
+  int g_log2;            // G = 1 << g_log2 threads a row
+  int chunks;            // column chunks of G vectors a row
+};
+
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+    hyperball_estimate_kernel(const EstArgs a) {
+  const int64_t tid = int64_t(blockIdx.x) * THREADS + threadIdx.x;
+  const int64_t i = tid >> a.g_log2;
+  if (i >= a.k) return;   // whole groups leave: G divides a warp
+  const int G = 1 << a.g_log2;
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (G - 1);
+  const unsigned mask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1) << (lane & ~(G - 1));
+  constexpr int BYTES = V < 4 ? V : 4;   // register bytes in a word
+
+  const int64_t x = a.nodes ? __ldg(a.nodes + i) : i;
+  const uint8_t* row = a.regs + x * a.R;
+  double s = 0.0;
+  int z = 0;
+  for (int c = 0; c < a.chunks; ++c) {
+    Vec<V> v;
+    v.load(row + (int64_t(c) << a.g_log2 | g) * V);
+#pragma unroll
+    for (int q = 0; q < Vec<V>::NW; ++q) {
+#pragma unroll
+      for (int b = 0; b < BYTES; ++b) {
+        const int r = (v.w[q] >> (8 * b)) & 0xff;
+        s += __hiloint2double((1023 - r) << 20, 0);   // 2^-r
+        z += r == 0;
+      }
+    }
+  }
+  for (int o = G >> 1; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(mask, s, o);
+    z += __shfl_xor_sync(mask, z, o);
+  }
+  if (g != 0) return;
+  const double m = double(a.R);
+  const double zf = double(z);
+  const double est = (1.0 / s) * a.c;
+  const double lin = m * log((1.0 / fmax(zf, 1e-300)) * m);
+  a.out[i] = est <= 2.5 * m && zf > 0 ? lin : est;
+}
+
+template <int V>
+cudaError_t launch_estimate(const EstArgs& a, cudaStream_t st) {
+  const int64_t threads = a.k << a.g_log2;
+  const dim3 grid(unsigned((threads + THREADS - 1) / THREADS));
+  hyperball_estimate_kernel<V><<<grid, THREADS, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// out [k]: the counts of the k rows of ``nodes`` (NULL: the first k rows) of
+// regs (n, row_bytes), row_bytes = m a power of two; c = alpha(m) m^2 as the
+// host computes it.  Returns cudaGetLastError after the launch.
+extern "C" int wg_hyperball_estimate(const void* regs, int64_t row_bytes,
+                                     const void* nodes, int64_t k, double c,
+                                     void* out, void* stream) {
+  if (row_bytes < 1 || (row_bytes & (row_bytes - 1))) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (k <= 0) return int(cudaGetLastError());
+  int64_t V = row_bytes < 16 ? row_bytes : 16;
+  while (uintptr_t(regs) & uintptr_t(V - 1)) V >>= 1;
+  const int64_t vecs = row_bytes / V;
+  const int64_t G = vecs < 32 ? vecs : 32;
+  if (((k << log2_of(G)) + THREADS - 1) / THREADS > 0x7fffffff) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  const EstArgs a{static_cast<const uint8_t*>(regs),
+                  static_cast<const int64_t*>(nodes),
+                  k,
+                  static_cast<double*>(out),
+                  row_bytes,
+                  c,
+                  log2_of(G),
+                  int(vecs / G)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (V) {
+    case 16: return int(launch_estimate<16>(a, st));
+    case 8: return int(launch_estimate<8>(a, st));
+    case 4: return int(launch_estimate<4>(a, st));
+    case 2: return int(launch_estimate<2>(a, st));
+    default: return int(launch_estimate<1>(a, st));
   }
 }

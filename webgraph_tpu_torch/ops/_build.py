@@ -14,8 +14,8 @@ Nothing is built when this module is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
 one where it launches its kernel and nowhere else.  The main path's
-kernels (B1, B2, HyperBall's merge and the EF decode) have a key each, and
-so has every probe site of ``experiments/`` (the ports in
+kernels (B1, B2, HyperBall's merge and estimate and the EF decode) have a
+key each, and so has every probe site of ``experiments/`` (the ports in
 ``webgraph_tpu_torch/experiments/``), keyed by the probe module and the
 kernel it launches.
 """
@@ -39,7 +39,7 @@ _WGNATIVE_SRC = os.path.join(_PKG, "native", "wgnative.cpp")
 
 LAUNCHES = {"bv_decode_lanes": 0, "bv_decode_lanes_split": 0,
             "split_merge": 0, "compact_runs": 0, "hyperball_merge": 0,
-            "ef_decode": 0}
+            "hyperball_estimate": 0, "ef_decode": 0}
 # one key per ``pl.pallas_call`` site of the JAX package's probes: the CUDA
 # source of its kernel and the site (file:line) it replaces
 _P = "experiments/pallas_probe"
@@ -87,6 +87,8 @@ SIGNATURES = {
                         _vp],
     "wg_hyperball_merge": [_vp, _vp, _ci, _vp, _i64, _vp, _i64, _vp, _vp,
                            _vp],
+    "wg_hyperball_estimate": [_vp, _i64, _vp, _i64, ctypes.c_double, _vp,
+                              _vp],
     "wg_ef_decode": [_vp, _i64, _vp, _vp, _i64, _i64, _ci, _i64, _vp, _i64,
                      _vp, _vp],
     # probe kernels: (variant, ..., stream)
